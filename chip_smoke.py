@@ -3,27 +3,44 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, `dist` on a hybrid-mode index, through its
-CLI at the size of bench.py's "base" world (24 genomes x 500 kbp, k=27
-h=11 w=35 m=4, 65,536 reads of 150 bp), and checks it:
+Drives the port's main path, `dist`, through its CLI on five generated
+worlds, and checks it:
 
   1. device: CUDA must be available; prints the card and its power limit;
-  2. build: compiles the CUDA kernels from the checkout with nvcc;
-  3. kernel vs plain: probe_hist_packed against its plain torch version on
-     the card, bit-equal, at the main path's shape and edge shapes, with
-     median times from CUDA events;
-  4. base world: builds the index, saves it, writes the reads as FASTQ;
+  2. build: compiles the CUDA kernels from the checkout, one nvcc per
+     source, all started together;
+  3. kernels vs plain: probe_hist_packed, probe_hist_tiles and hdist_chunk
+     against their plain torch versions on the card, bit-equal, at the
+     main path's shapes and edge shapes, with median times from CUDA
+     events;
+  4. base world: bench.py's "base" configuration (24 genomes x 500 kbp,
+     k=27 h=11 w=35 m=4); builds the index, saves it, writes 65,536 reads
+     of 150 bp as FASTQ;
   5. dist through the CLI on cuda: framing, one answer per read, kernel
-     launches counted from zero, engine mode, overflow re-runs per batch;
+     launches counted from zero (probe_hist_packed, not the tiles kernel),
+     engine mode, overflow re-runs per batch;
   6. the same reads' first 2,048 through the port on the host (--device
      cpu): identical (read, reference) rows, distances within 1e-5;
   7. 5 and 6 again on a sparse-row world (24 x 200 kbp, k=29 h=13 m=4,
      8,192 reads);
-  8. dist reads/s on the base world: warm-up, then 3 timed passes.
+  8. dist reads/s on the base world: warm-up, then 3 timed passes;
+  9. long reads: 4,096 reads of 400 bp (374 positions) on the base index,
+     through probe_hist_tiles; the first 1,024 against the host;
+ 10. mid world: 48 genomes x 250 kbp at the base parameters (two mask
+     words, embed rows), 8,192 reads, through probe_hist_tiles; host check
+     on the first 1,024;
+ 11. wide world: bench.py's "1k" configuration (k=29 h=13 w=35 m=4, 250 kbp
+     genomes) with 256 genomes, the most a bitmask index holds (8 mask
+     words, 'se' bucket rows), 65,536 reads: dist through the CLI on cuda
+     through probe_hist_tiles only, the first 1,024 reads against the host,
+     reads/s (warm-up + 3 timed passes), and one profiled pass (device
+     busy share, device time by kernel).
 
-Any failure raises (non-zero exit). The line before the last is the
-kernels JSON; the last line is {"ok": true, "device": {...}}. Without a
-card it exits 1 and prints no result.
+Any failure raises (non-zero exit). Each phase prints its seconds. The line
+before the last is the kernels JSON (launches: counted over the CLI dist
+runs on cuda of phases 5, 7, 9, 10 and 11); the last line is
+{"ok": true, "device": {...}}. Without a card it exits 1 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -46,9 +63,24 @@ BASE_READS = 65536
 SPARSE = dict(seed=11, nleaves=24, glen=200_000, rate=0.05, k=29, h=13,
               w=35, m=4)                      # reference-default k, h
 SPARSE_READS = 8192
+WIDE = dict(seed=13, nleaves=256, glen=250_000, rate=0.05, k=29, h=13, w=35,
+            m=4)                              # bench.py "1k", 256 genomes
+WIDE_READS = 65536
+MID = dict(seed=17, nleaves=48, glen=250_000, rate=0.05, k=27, h=11, w=35,
+           m=4)
+MID_READS = 8192
+LONG_READS = 4096
+LONG_LEN = 400
 CPU_READS = 2048
+WIDE_CPU_READS = 1024
 DIST_TOL = 1e-5                               # one unit of the output grid
 ROW_RE = re.compile(r"[^\t]+\t[^\t]+\t(\d+\.\d{5}|NaN)")
+KERNELS = ("probe_hist_packed", "probe_hist_tiles", "hdist_chunk")
+REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
+    "probe_hist_packed": "krepp_tpu/query/pallas_kernels.py:210",
+    "probe_hist_tiles": "krepp_tpu/query/pallas_kernels.py:93",
+    "hdist_chunk": "krepp_tpu/query/pallas_kernels.py:28",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -62,6 +94,13 @@ def check(cond, msg: str) -> None:
 
 def phase(n: int, msg: str) -> None:
     print(f"[{n}] {msg}", flush=True)
+
+
+@contextlib.contextmanager
+def timed(n: int, name: str):
+    t0 = time.time()
+    yield
+    phase(n, f"{name}: {time.time() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -88,70 +127,128 @@ def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_vs_plain():
+def _compare(label: str, got, want, main: bool, kernel, ref, args,
+             dark: bool = False):
+    """Bit-equality of a kernel's outputs with its plain version's; times
+    both at the main shape."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{kernel.__name__} != plain at {label} (max abs err {err})")
+    check(dark or bool((want[-1] < 255).any()),
+          f"no matches planted at {label}")
+    line = f"{kernel.__name__} {label}: bit-equal"
+    if not main:
+        phase(3, line)
+        return None
+    ms = cuda_median_ms(lambda: kernel(*args))
+    plain_ms = cuda_median_ms(lambda: ref(*args), reps=3, warmup=1)
+    phase(3, line + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                     "(median)")
+    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+
+
+def kernels_vs_plain():
     """Phase 3: bit-equality at the main and edge shapes; times at main."""
     import numpy as np
     import torch
 
     from krepp_tpu_torch.query import kernels
-    from krepp_tpu_torch.testing import epilogue_inputs
+    from krepp_tpu_torch.testing import epilogue_inputs, tiles_inputs
+
+    def dev(arrays):
+        return tuple(None if a is None else torch.from_numpy(
+            a.view(np.int32) if a.dtype == np.uint32 else a).cuda()
+            for a in arrays)
 
     rng = np.random.default_rng(3)
-    shapes = [  # (label, N, P, C0, S, th, dark)
-        ("main", 32768, 166, 2, 24, 4, False),   # 16,384 reads x 2 strands
-        ("odd N", 777, 166, 2, 24, 4, False),
+    result = {}
+    packed = [  # (label, N, P, C0, S, th, dark)
+        ("main N=32768 P=166 C0=2 S=24 X=5", 32768, 166, 2, 24, 4, False),
+        ("odd N=777", 777, 166, 2, 24, 4, False),
         ("P=255", 1000, 255, 2, 24, 4, False),
         ("S=32", 1000, 166, 2, 32, 4, False),
         ("C0=1", 1000, 166, 1, 24, 4, False),
         ("X=6", 1000, 166, 2, 24, 5, False),
         ("dark", 1000, 166, 2, 24, 4, True),
     ]
-    result = {}
-    for label, N, P, C0, S, th, dark in shapes:
-        res, light, d = epilogue_inputs(rng, N, P, C0, S, th, dark)
-        args = (torch.from_numpy(res.view(np.int32)).cuda(),
-                torch.from_numpy(light).cuda(),
-                torch.from_numpy(d.view(np.int32)).cuda())
-        got = kernels.probe_hist_packed(*args, th, C0, S)
-        want = kernels.probe_hist_packed_ref(*args, th, C0, S)
-        torch.cuda.synchronize()
-        err = max(int((got[0] - want[0]).abs().max()),
-                  int((got[1] - want[1]).abs().max()))
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"kernel != plain at {label} (max abs err {err})")
-        check(dark or int(want[0].sum()) > 0, f"no matches planted at {label}")
-        line = f"{label}: N={N} P={P} C0={C0} S={S} X={th + 1} bit-equal"
-        if label == "main":
-            ms = cuda_median_ms(lambda: kernels.probe_hist_packed(
-                *args, th, C0, S))
-            plain_ms = cuda_median_ms(lambda: kernels.probe_hist_packed_ref(
-                *args, th, C0, S), reps=5)
-            result = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)"
-        phase(3, line)
+    for i, (label, N, P, C0, S, th, dark) in enumerate(packed):
+        args = dev(epilogue_inputs(rng, N, P, C0, S, th, dark)) + (th, C0, S)
+        r = _compare(label, kernels.probe_hist_packed(*args),
+                     kernels.probe_hist_packed_ref(*args), i == 0,
+                     kernels.probe_hist_packed,
+                     kernels.probe_hist_packed_ref, args, dark)
+        result.setdefault("probe_hist_packed", r)
+    # the main path pads 150-bp reads to 192 bases (P = 192 - k + 1) and
+    # 400-bp reads to 448
+    tiles = [  # (label, N, P, C0, W, S, th, flavor, dark)
+        ("main N=32768 P=164 C0=2 W=8 S=256 X=5 se", 32768, 164, 2, 8, 256,
+         4, "se", False),
+        ("P=122", 32768, 122, 2, 8, 256, 4, "se", False),
+        ("odd N=777", 777, 164, 2, 8, 256, 4, "se", False),
+        ("W=2 S=48 embed", 2000, 166, 2, 2, 48, 4, "embed", False),
+        ("W=1 P=374 embed", 2000, 374, 2, 1, 24, 4, "embed", False),
+        ("W=1 P=422 embed", 2000, 422, 2, 1, 24, 4, "embed", False),
+        ("X=7", 2000, 164, 2, 8, 256, 6, "se", False),
+        ("S=33", 2000, 164, 2, 2, 33, 4, "se", False),
+        ("C0=1", 2000, 164, 1, 3, 70, 4, "se", False),
+        ("dark", 2000, 164, 2, 8, 256, 4, "se", True),
+    ]
+    for i, (label, N, P, C0, W, S, th, flavor, dark) in enumerate(tiles):
+        args = dev(tiles_inputs(rng, N, P, C0, W, S, th, flavor, dark)) + (
+            th, C0, W, S)
+        r = _compare(label, kernels.probe_hist_tiles(*args),
+                     kernels.probe_hist_tiles_ref(*args), i == 0,
+                     kernels.probe_hist_tiles, kernels.probe_hist_tiles_ref,
+                     args, dark)
+        result.setdefault("probe_hist_tiles", r)
+    hdist = [("main N=1000003 C=16", 1000003, 16, 4), ("N=1537 C=4", 1537, 4, 4),
+             ("C=1 th=6", 4099, 1, 6)]
+    for i, (label, N, C, th) in enumerate(hdist):
+        res = rng.integers(0, 2 ** 32, N, dtype=np.uint32)
+        enc = rng.integers(0, 2 ** 32, (N, C), dtype=np.uint32)
+        near = rng.random(N) < 0.3          # planted near matches
+        enc[near, 0] = res[near] ^ np.uint32(1 << 3)
+        cnt = rng.integers(0, C + 1, N, dtype=np.int32)
+        args = dev((res, enc, cnt)) + (th,)
+        r = _compare(label, kernels.hdist_chunk(*args),
+                     kernels.hdist_chunk_ref(*args), i == 0,
+                     kernels.hdist_chunk, kernels.hdist_chunk_ref, args)
+        result.setdefault("hdist_chunk", r)
     return result
 
 
-def make_world(cfg: dict, nreads: int, root: str, tag: str):
-    """Phase 4/7: index + FASTQ of a generated world; returns the paths."""
-    import numpy as np
-
+def make_world(cfg: dict, root: str, tag: str):
+    """Index of a generated world, saved under root; returns (index path,
+    genomes, k-mers, seconds)."""
     from krepp_tpu_torch.index.artifact import save_native
-    from krepp_tpu_torch.testing import (build_world_index,
-                                         sample_read_codes, write_fastq)
+    from krepp_tpu_torch.testing import build_world_index
 
     t0 = time.time()
     built, genomes, _ = build_world_index(**cfg,
                                           num_threads=os.cpu_count() or 1)
     idx = os.path.join(root, f"idx_{tag}")
     save_native(built, idx)
-    reads = sample_read_codes(np.random.default_rng(cfg["seed"] + 1),
-                              genomes, nreads, rlen=150, mut=0.05)
+    return idx, genomes, built.nkmers, time.time() - t0
+
+
+def write_reads(genomes, seed: int, n: int, rlen: int, ncpu: int, root: str,
+                tag: str):
+    """n reads of rlen bp at 5% mutation as FASTQ, and the first ncpu of
+    them as a second file; returns both paths."""
+    import numpy as np
+
+    from krepp_tpu_torch.testing import sample_read_codes, write_fastq
+
+    reads = sample_read_codes(np.random.default_rng(seed), genomes, n,
+                              rlen=rlen, mut=0.05)
     fq = os.path.join(root, f"{tag}.fq")
     write_fastq(fq, reads)
     fq_cpu = os.path.join(root, f"{tag}_cpu.fq")
-    write_fastq(fq_cpu, reads[:CPU_READS])
-    return idx, fq, fq_cpu, built.nkmers, time.time() - t0
+    write_fastq(fq_cpu, reads[:ncpu])
+    return fq, fq_cpu
 
 
 def run_cli(argv):
@@ -179,36 +276,47 @@ def read_rows(path: str):
     return lines[2:]
 
 
-def dist_on_card(n: int, idx: str, fq: str, out: str, nreads: int) -> int:
-    """Phase 5: dist through the CLI on cuda; returns the kernel launches."""
+def dist_on_card(n: int, idx: str, fq: str, out: str, nreads: int,
+                 launched: str, layout: tuple, total: dict):
+    """dist through the CLI on cuda with every kernel count set to 0 just
+    before and read just after: `launched` must run, the other epilogue
+    kernel must not, and (hflavor, W) must be `layout`. Adds the counts to
+    `total`."""
     from krepp_tpu_torch.query import kernels
 
-    kernels.probe_hist_packed.launches = 0
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
     t0 = time.time()
     rc, stats = run_cli(["dist", "-q", fq, "-i", idx, "-o", out,
                          "--device", "cuda"])
     dt = time.time() - t0
-    launches = kernels.probe_hist_packed.launches
+    counts = {name: getattr(kernels, name).launches for name in KERNELS}
     check(rc == 0, f"cli returned {rc}")
     rows = read_rows(out)
     nids = len({r.split("\t", 1)[0] for r in rows})
     check(nids == nreads, f"{nids} reads answered of {nreads}")
-    check(launches > 0, "probe_hist_packed was not launched on the main path")
     check(stats["mode"] == "hybrid", f"engine mode {stats['mode']}")
+    check((stats["hflavor"], stats["W"]) == layout,
+          f"bucket rows {stats['hflavor']}, W={stats['W']}; want {layout}")
+    other = ({"probe_hist_packed", "probe_hist_tiles"} - {launched}).pop()
+    check(counts[launched] > 0, f"{launched} was not launched on this path")
+    check(counts[other] == 0, f"{other} was launched on this path")
+    for name, c in counts.items():
+        total[name] += c
     phase(n, f"dist on cuda: {nreads} reads, {len(rows)} rows, "
              f"{dt:.2f} s with index load; mode={stats['mode']}, "
-             f"probe_hist_packed launches={launches}, overflow re-runs per "
-             f"batch={stats['escalations']}")
-    return launches
+             f"hflavor={stats['hflavor']}, W={stats['W']}, launches={counts}, "
+             f"overflow re-runs per batch={stats['escalations']}")
 
 
-def gpu_vs_cpu(n: int, idx: str, fq_cpu: str, out_gpu: str, out_cpu: str):
-    """Phase 6: the first CPU_READS reads through --device cpu."""
+def gpu_vs_cpu(n: int, idx: str, fq_cpu: str, out_gpu: str, out_cpu: str,
+               ncpu: int):
+    """The first ncpu reads through --device cpu: the same rows."""
     rc, _ = run_cli(["dist", "-q", fq_cpu, "-i", idx, "-o", out_cpu,
                      "--device", "cpu"])
     check(rc == 0, f"cpu cli returned {rc}")
     cpu_rows = read_rows(out_cpu)
-    keep = {f"r{i}" for i in range(CPU_READS)}
+    keep = {f"r{i}" for i in range(ncpu)}
     gpu_rows = [r for r in read_rows(out_gpu) if r.split("\t", 1)[0] in keep]
 
     def keyed(rows):
@@ -225,13 +333,13 @@ def gpu_vs_cpu(n: int, idx: str, fq_cpu: str, out_gpu: str, out_cpu: str):
                  if not (math.isnan(g[k]) and math.isnan(c[k]))), default=0.0)
     check(worst <= DIST_TOL, f"distance differs by {worst}")
     ndiff = sum(a != b for a, b in zip(gpu_rows, cpu_rows))
-    phase(n, f"cuda vs cpu on {CPU_READS} reads: {len(c)} rows identical "
+    phase(n, f"cuda vs cpu on {ncpu} reads: {len(c)} rows identical "
              f"as sets, max |dist diff| {worst:g}, rows differing in bytes "
              f"{ndiff}")
 
 
-def throughput(idx: str, fq: str, card: str):
-    """Phase 8: dist reads/s on the base world (index loaded once)."""
+def throughput(n: int, name: str, idx: str, fq: str, card: str):
+    """dist reads/s (index loaded once): a warm-up, then 3 timed passes."""
     import torch
 
     from krepp_tpu_torch.index.artifact import load_index
@@ -244,18 +352,49 @@ def throughput(idx: str, fq: str, card: str):
         with open(os.devnull, "w") as sink:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            n = run_dist(eng.di, fq, sink, "smoke", DistConfig(),
-                         engine_factory=lambda di, th: eng)
+            nr = run_dist(eng.di, fq, sink, "smoke", DistConfig(),
+                          engine_factory=lambda di, th: eng)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         if rep:
-            rates.append(n / dt)
-            phase(8, f"pass {rep}: {n / dt:.1f} reads/s ({dt:.3f} s) "
+            rates.append(nr / dt)
+            phase(n, f"pass {rep}: {nr / dt:.1f} reads/s ({dt:.3f} s) "
                      f"on {card}")
     med = statistics.median(rates)
-    phase(8, f"dist base: median {med:.1f} reads/s, spread "
+    phase(n, f"dist {name}: median {med:.1f} reads/s, spread "
              f"{max(rates) / min(rates):.3f}x (max/min of 3) on {card}")
-    return med
+    return eng
+
+
+def profile_pass(n: int, eng, fq: str):
+    """One dist pass under torch.profiler: wall time, device busy time and
+    the device time of the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from krepp_tpu_torch.query.dist import DistConfig, run_dist
+
+    with open(os.devnull, "w") as sink, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_dist(eng.di, fq, sink, "smoke", DistConfig(),
+                 engine_factory=lambda di, th: eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key == "cudaLaunchKernel")
+    phase(n, f"profiled pass: {wall * 1e3:.1f} ms wall (profiler on), "
+             f"{busy:.3f} ms device time ({100 * busy / (wall * 1e3):.1f}% "
+             f"busy), {launches} cudaLaunchKernel")
+    ours = [e for e in events if any(k in e.key for k in KERNELS)
+            and e not in top]
+    for e in top + ours:
+        phase(n, f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                 f"x{e.count:<6d} {e.key[:90]}")
 
 
 def main() -> int:
@@ -275,51 +414,107 @@ def main() -> int:
               "of a checkout", file=sys.stderr)
         return 1
 
+    t_start = time.time()
     card = card_line()
     print(card)
     phase(1, f"device: {torch.cuda.get_device_name(0)} x "
              f"{torch.cuda.device_count()}; torch {torch.__version__}, "
              f"CUDA {torch.version.cuda}")
     from krepp_tpu_torch import resolve_device
-    from krepp_tpu_torch.csrc.build import library_path
+    from krepp_tpu_torch.csrc.build import build
 
     resolve_device("cuda")
     t0 = time.time()
-    lib = library_path("probe_hist_packed")
-    with open(lib + ".log") as f:
-        ptxas = [l.strip() for l in f if "registers" in l or "spill" in l]
-    phase(2, f"nvcc build of probe_hist_packed.cu: {time.time() - t0:.2f} s; "
-             + "; ".join(ptxas))
+    for name, lib in zip(KERNELS, build(KERNELS)):
+        with open(lib + ".log") as f:
+            ptxas = [ln.strip() for ln in f
+                     if "registers" in ln or "spill" in ln]
+        phase(2, f"{name}.cu: " + "; ".join(ptxas))
+    phase(2, f"nvcc build of {len(KERNELS)} sources in parallel: "
+             f"{time.time() - t0:.2f} s")
 
-    kstats = kernel_vs_plain()
+    with timed(3, "kernels vs plain"):
+        kstats = kernels_vs_plain()
+    launches = {name: 0 for name in KERNELS}
 
     with tempfile.TemporaryDirectory(prefix="krepp_smoke_") as root:
-        idx, fq, fq_cpu, nk, dt = make_world(BASE, BASE_READS, root, "base")
-        phase(4, f"base world: {nk} k-mers indexed, {BASE_READS} reads "
-                 f"written in {dt:.1f} s")
-        out_gpu = os.path.join(root, "base_gpu.tsv")
-        launches = dist_on_card(5, idx, fq, out_gpu, BASE_READS)
-        gpu_vs_cpu(6, idx, fq_cpu, out_gpu, os.path.join(root, "base_cpu.tsv"))
+        with timed(4, "base world"):
+            idx, bgen, nk, dt = make_world(BASE, root, "base")
+            fq, fq_cpu = write_reads(bgen, BASE["seed"] + 1, BASE_READS, 150,
+                                     CPU_READS, root, "base")
+            phase(4, f"base world: {nk} k-mers indexed in {dt:.1f} s, "
+                     f"{BASE_READS} reads written")
+        with timed(5, "base dist on cuda"):
+            out_gpu = os.path.join(root, "base_gpu.tsv")
+            dist_on_card(5, idx, fq, out_gpu, BASE_READS,
+                         "probe_hist_packed", ("embed", 1), launches)
+        with timed(6, "base host check"):
+            gpu_vs_cpu(6, idx, fq_cpu, out_gpu,
+                       os.path.join(root, "base_cpu.tsv"), CPU_READS)
 
-        sidx, sfq, sfq_cpu, snk, sdt = make_world(SPARSE, SPARSE_READS, root,
-                                                  "sparse")
-        from krepp_tpu_torch.index.artifact import load_index
+        with timed(7, "sparse world"):
+            sidx, sgen, snk, sdt = make_world(SPARSE, root, "sparse")
+            sfq, sfq_cpu = write_reads(sgen, SPARSE["seed"] + 1, SPARSE_READS,
+                                       150, CPU_READS, root, "sparse")
+            del sgen
+            from krepp_tpu_torch.index.artifact import load_index
 
-        check(load_index(sidx).row_ids is not None,
-              "the sparse world did not get a sparse row table")
-        phase(7, f"sparse world: {snk} k-mers, row_ids set, {SPARSE_READS} "
-                 f"reads, built in {sdt:.1f} s")
-        sout = os.path.join(root, "sparse_gpu.tsv")
-        dist_on_card(7, sidx, sfq, sout, SPARSE_READS)
-        gpu_vs_cpu(7, sidx, sfq_cpu, sout, os.path.join(root, "sparse_cpu.tsv"))
+            check(load_index(sidx).row_ids is not None,
+                  "the sparse world did not get a sparse row table")
+            phase(7, f"sparse world: {snk} k-mers, row_ids set, "
+                     f"{SPARSE_READS} reads, built in {sdt:.1f} s")
+            sout = os.path.join(root, "sparse_gpu.tsv")
+            dist_on_card(7, sidx, sfq, sout, SPARSE_READS,
+                         "probe_hist_packed", ("embed", 1), launches)
+            gpu_vs_cpu(7, sidx, sfq_cpu, sout,
+                       os.path.join(root, "sparse_cpu.tsv"), CPU_READS)
 
-        throughput(idx, fq, card)
+        with timed(8, "base reads/s"):
+            throughput(8, "base", idx, fq, card)
 
+        with timed(9, "long reads"):
+            lfq, lfq_cpu = write_reads(bgen, BASE["seed"] + 2, LONG_READS,
+                                       LONG_LEN, WIDE_CPU_READS, root, "long")
+            del bgen
+            lout = os.path.join(root, "long_gpu.tsv")
+            dist_on_card(9, idx, lfq, lout, LONG_READS, "probe_hist_tiles",
+                         ("embed", 1), launches)
+            gpu_vs_cpu(9, idx, lfq_cpu, lout,
+                       os.path.join(root, "long_cpu.tsv"), WIDE_CPU_READS)
+
+        with timed(10, "mid world"):
+            midx, mgen, mnk, mdt = make_world(MID, root, "mid")
+            mfq, mfq_cpu = write_reads(mgen, MID["seed"] + 1, MID_READS, 150,
+                                       WIDE_CPU_READS, root, "mid")
+            del mgen
+            phase(10, f"mid world: {mnk} k-mers, built in {mdt:.1f} s")
+            mout = os.path.join(root, "mid_gpu.tsv")
+            dist_on_card(10, midx, mfq, mout, MID_READS, "probe_hist_tiles",
+                         ("embed", 2), launches)
+            gpu_vs_cpu(10, midx, mfq_cpu, mout,
+                       os.path.join(root, "mid_cpu.tsv"), WIDE_CPU_READS)
+
+        with timed(11, "wide world"):
+            widx, wgen, wnk, wdt = make_world(WIDE, root, "wide")
+            wfq, wfq_cpu = write_reads(wgen, WIDE["seed"] + 1, WIDE_READS,
+                                       150, WIDE_CPU_READS, root, "wide")
+            del wgen
+            phase(11, f"wide world: {wnk} k-mers, 256 leaves, built in "
+                      f"{wdt:.1f} s")
+            wout = os.path.join(root, "wide_gpu.tsv")
+            dist_on_card(11, widx, wfq, wout, WIDE_READS, "probe_hist_tiles",
+                         ("se", 8), launches)
+            gpu_vs_cpu(11, widx, wfq_cpu, wout,
+                       os.path.join(root, "wide_cpu.tsv"), WIDE_CPU_READS)
+            eng = throughput(11, "wide", widx, wfq, card)
+            profile_pass(11, eng, wfq)
+
+    phase(12, f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": "probe_hist_packed", "route": "cuda",
-        "source": "krepp_tpu_torch/csrc/probe_hist_packed.cu",
-        "replaces": "krepp_tpu/query/pallas_kernels.py:210",
-        "launches": launches, **kstats}]}))
+        "name": name, "route": "cuda",
+        "source": f"krepp_tpu_torch/csrc/{name}.cu",
+        "replaces": REPLACES[name], "launches": launches[name],
+        **kstats[name]} for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

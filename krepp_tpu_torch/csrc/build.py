@@ -4,9 +4,11 @@ Each `<name>.cu` in this directory exposes a plain `extern "C"` launcher
 and compiles on its own into a shared library (no PyTorch headers, so a
 build takes seconds), loaded with ctypes. The library lands in `_build/`
 beside the sources, named by a hash of the source and the flags, so an
-edited source rebuilds and a stale library is never loaded. nvcc's output
-(ptxas register and spill report included) is kept next to it as
-`<library>.log`.
+edited source rebuilds and a stale library is never loaded. nvcc writes to
+a temporary name that is renamed into place, so a concurrent loader never
+opens a half-written library. nvcc's output (ptxas register and spill
+report included) is kept next to it as `<library>.log`. `build` starts one
+nvcc per missing library, all at once.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import List, Sequence
 
 CSRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(CSRC_DIR, "_build")
@@ -44,27 +47,45 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu (built if missing)."""
+def _paths(name: str):
+    """(source, library) paths of csrc/<name>.cu."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         h = hashlib.sha256(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.time()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    with open(out + ".log", "w") as f:
-        f.write(f"# nvcc {' '.join(NVCC_FLAGS)} ({time.time() - t0:.2f} s)\n")
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees a stub
-    return out
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names: Sequence[str]) -> List[str]:
+    """Paths of the libraries of csrc/<name>.cu; the missing ones are built
+    by nvcc processes started together."""
+    jobs = []
+    outs = []
+    for name in names:
+        src, out = _paths(name)
+        outs.append(out)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, out, tmp, time.time(), proc))
+    failed = []
+    for src, out, tmp, t0, proc in jobs:
+        stdout, stderr = proc.communicate()
+        with open(out + ".log", "w") as f:
+            f.write(f"# nvcc {' '.join(NVCC_FLAGS)} "
+                    f"({time.time() - t0:.2f} s)\n")
+            f.write(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -72,6 +93,6 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(library_path(name))
+            lib = ctypes.CDLL(build([name])[0])
             _LIBS[name] = lib
         return lib

@@ -2,9 +2,9 @@
 
 JAX-free copy of krepp_tpu/index/build.py (its module imports the device
 winnower and the sdust extractor, which import JAX). Winnowing goes only
-through krepp_tpu's native C winnower (core/native_extract.py); the
-device winnower and sdust-masked extraction raise until ROADMAP slice 6
-ports them. The merge, dedupe and coloring are the reference's numpy and
+through the repo's native C winnower, loaded by the port's
+core/native_extract.py; the device winnower and sdust-masked extraction
+raise until ROADMAP slice 6 ports them. The merge, dedupe and coloring are the reference's numpy and
 C code, so a build here is field-for-field the JAX package's build.
 """
 
@@ -49,18 +49,18 @@ class BuiltIndex:
 
 
 def _extract_genome(contigs, params: IndexParams):
-    """Winnow one genome with the native C winnower."""
-    from krepp_tpu.core import native_extract
+    """Winnow one genome with the native C winnower (built by the port's
+    own loader; a failed build raises)."""
+    from ..core import native_extract
 
     if params.sdust_t > 0 and params.sdust_w > 0:
         raise NotImplementedError(
             "sdust-masked extraction is not ported to krepp_tpu_torch yet "
             "(ROADMAP Queue 1, slice 6)")
-    if not native_extract.native_available(params):
+    if not native_extract.window_fits(params):
         raise NotImplementedError(
-            "the native C winnower is unavailable (or w - k + 1 exceeds its "
-            "window) and device winnowing is not ported yet "
-            "(ROADMAP Queue 1, slice 6)")
+            "w - k + 1 exceeds the native C winnower's window and device "
+            "winnowing is not ported yet (ROADMAP Queue 1, slice 6)")
     return native_extract.extract_genome_mers_native(contigs, params)
 
 

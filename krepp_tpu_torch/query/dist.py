@@ -53,8 +53,9 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
              stats: Optional[dict] = None) -> int:
     """Run `dist` over query_path, writing the TSV to `out`; returns the
     number of reads. engine_factory(dindex, hdist_th) may supply a built
-    engine. If `stats` is a dict it receives the engine mode and the
-    overflow re-runs ("escalations") of each batch."""
+    engine. If `stats` is a dict it receives the engine mode, its bucket-row
+    flavor and mask words (hflavor, W) and the overflow re-runs
+    ("escalations") of each batch."""
     cfg = cfg or DistConfig()
     engine = engine_factory(dindex, cfg.hdist_th) if engine_factory else \
         QueryEngine(dindex, cfg.hdist_th, device=device)
@@ -100,8 +101,8 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
             w = wcount[slot]
             out.write(f"{leaf_names[slot]}\t{fmt5(w)}\t{fmt5(w / twcount)}\n")
     if stats is not None:
-        stats.update(mode=engine.mode, batches=len(escalations),
-                     escalations=escalations)
+        stats.update(mode=engine.mode, hflavor=engine.hflavor, W=engine.W,
+                     batches=len(escalations), escalations=escalations)
     return total
 
 

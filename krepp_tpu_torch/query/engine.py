@@ -1,21 +1,24 @@
 """Query engine for `dist`: batched LSH probe + histogram + ML distance.
 
-Port of the hybrid-mode parts of krepp_tpu/query/engine.py (see its module
-docstring for the pipeline and the reference citations). Stage 1 runs the
-strand hashes, the bucket-row gather and the packed probe epilogue (the
-CUDA kernel `probe_hist_packed` on the card), then the compacted heavy
-tail; stage 2 runs lane-compacted filtering, Brent and strand resolution in
-native f64. Capacities, tiers and overflow flags are the reference's, so
-the same batches escalate.
+Port of the hybrid and CSR modes of krepp_tpu/query/engine.py (see its
+module docstring for the pipeline and the reference citations). Stage 1
+runs the strand hashes, the bucket-row gather and a probe epilogue kernel
+on the card (`probe_hist_packed` for one mask word, S <= 32, hdist_th <= 5
+and <= 255 positions; `probe_hist_tiles` for everything else), then the
+compacted heavy tail; stage 2 runs lane-compacted filtering, Brent and
+strand resolution in native f64. Capacities, tiers and overflow flags are
+the reference's, so the same batches escalate.
 
-Covered: hybrid 'embed' tables with one mask word (S <= 32 leaves), <= 2
-dense slots, hdist_th <= 5 and <= 255 positions per read. Event mode, CSR
-mode, the 'se' flavor and wider indexes raise NotImplementedError naming
-the ROADMAP slice that brings them.
+Covered: every index with a leaf bitmask table (S <= 256 leaves, W <= 8
+mask words), 'embed' and 'se' bucket rows, any read length and any
+hdist_th; CSR mode when no bucket-row table fits DIRECT_MEM_CAP. An index
+without bitmasks (event mode) raises NotImplementedError naming the
+ROADMAP slice that brings it.
 
 Host syncs per step (a step does not run fully asynchronously): the heavy
-tail's deepest-bucket count (when buckets exceed the heavy table), the
-Brent lane count, and Brent's convergence check every few iterations.
+tail's deepest-bucket count (when buckets exceed the heavy table; in CSR
+mode the deepest bucket of each strand and of its top-k tail), the Brent
+lane count, and Brent's convergence check every few iterations.
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ from ..core.compact import compact_mask_indices, compact_mask_indices_strided
 from ..core.llh import (F, brent_on_mask, make_llh, make_llh_fast,
                         make_llh_np)
 from ..index.index import DeviceIndex
-from .bucket_scan import _scan_loop, make_expander, probe_strand_full
-from .kernels import HD_SENTINEL, MAX_P, MAX_S, MAX_X, probe_hist_packed
+from .bucket_scan import (_scan_loop, make_expander, probe_strand,
+                          probe_strand_full)
+from .kernels import (HD_SENTINEL, MAX_P, MAX_S, MAX_X, probe_hist_packed,
+                      probe_hist_tiles)
 
 D_MAX = np.finfo(np.float64).max  # Minfo d_llh default (ref: src/query.hpp:226)
 
@@ -47,6 +52,8 @@ DEEP_DIV = 256
 DIRECT_MEM_CAP = 2 << 30
 EMBED_W_CAP = 2
 HEAVY_TAB_CAP = 512 << 20
+# elements of the heavy tail's largest [lanes, S, X] one-hot temporary
+ONEHOT_ELEMS = 1 << 25
 
 
 def hybrid_flavor(nrows: int, max_bucket: int, W: int) -> Optional[str]:
@@ -129,10 +136,14 @@ class _Pending:
 class QueryEngine:
     """dist probe + leaf-level ML over one DeviceIndex on one device.
 
-    Only the 'hybrid' probe layout is ported: a bucket-row table (count
-    word + first C0 entries per row with the leaf bitmask embedded), probed
-    with ONE row gather + the packed epilogue kernel; deep buckets spill to
-    a compacted heavy-bucket table or CSR rescan."""
+    Probe layouts (chosen at init, as the reference's):
+      * 'hybrid' -- a bucket-row table (count word + first C0 entries per
+        row, the leaf bitmask embedded ('embed', W <= 2) or the color id
+        stored ('se')), probed with ONE row gather + an epilogue kernel;
+        deep buckets spill to a compacted heavy-bucket table or CSR rescan;
+      * 'csr' -- the flat entry array + offset CSR with a bounded scan
+        loop and a top-k heavy tail, when no bucket-row table fits
+        DIRECT_MEM_CAP."""
 
     def __init__(self, dindex: DeviceIndex, hdist_th: int = 4,
                  device="cuda"):
@@ -146,15 +157,6 @@ class QueryEngine:
                 f"{self.S} leaf slots need the event probe, which is not "
                 "ported to krepp_tpu_torch yet (ROADMAP Queue 1, slice 4)")
         self.W = dindex.se_mask.shape[1]
-        if self.W != 1 or self.S > MAX_S:
-            raise NotImplementedError(
-                f"{self.S} leaf slots (W={self.W} mask words) need the tiled "
-                "epilogue kernel (ROADMAP Queue 1, slice 2; Queue 2 "
-                "probe_hist_tiles)")
-        if self.th + 1 > MAX_X:
-            raise NotImplementedError(
-                f"hdist_th={self.th} > {MAX_X - 1} needs the tiled epilogue "
-                "kernel (ROADMAP Queue 1, slice 2)")
         dev = self.device
         self._rho_slot = torch.from_numpy(
             np.asarray(dindex.rho_slot, np.float64)).to(dev)
@@ -207,42 +209,43 @@ class QueryEngine:
 
     # --------------------------------------------------------- table builds
     def _init_tables(self, di: DeviceIndex) -> None:
-        """Build the hybrid tables on the host and place them on device."""
+        """Choose the probe layout, build its tables on the host and place
+        them on device: (slots, enc_se, row_start, row_ids, mask_tab,
+        heavy_tab) in hybrid mode, (enc_se, row_start, row_ids, mask_tab)
+        in CSR mode."""
+        dev = self.device
+        enc_se = np.stack([di.enc_v, di.se_v.astype(np.uint32)], axis=1)
+        csr = (_i32(enc_se, dev),
+               torch.from_numpy(di.row_start.astype(np.int64)).to(dev),
+               None if di.row_ids is None
+               else torch.from_numpy(di.row_ids.astype(np.int64)).to(dev),
+               _i32(di.se_mask, dev))
         slots, flavor = build_hybrid_slots(
             di.row_start, di.enc_v, di.se_v, di.se_mask,
             di.nrows_u if di.row_ids is None else None,
             max(1, di.max_bucket), self.W)
         if slots is None:
-            raise NotImplementedError(
-                "no bucket-row table fits the device-memory cap; CSR mode is "
-                "not ported to krepp_tpu_torch yet (ROADMAP Queue 1, slice 2)")
-        if flavor != "embed":
-            raise NotImplementedError(
-                "the 'se' hybrid flavor is not ported to krepp_tpu_torch yet "
-                "(ROADMAP Queue 1, slice 2)")
+            self.mode = "csr"
+            self.hflavor = None
+            self._tables = csr
+            return
         self.mode = "hybrid"
         self.hflavor = flavor
         self.C0 = min(DENSE_SLOTS, max(1, di.max_bucket))
         heavy_tab = None
         if di.max_bucket > self.C0:
             heavy_tab = self._build_heavy_tab(di, slots)
-        dev = self.device
-        enc_se = np.stack([di.enc_v, di.se_v.astype(np.uint32)], axis=1)
-        self._tables = (
-            _i32(slots, dev), _i32(enc_se, dev),
-            torch.from_numpy(di.row_start.astype(np.int64)).to(dev),
-            None if di.row_ids is None
-            else torch.from_numpy(di.row_ids.astype(np.int64)).to(dev),
-            _i32(di.se_mask, dev),
-            None if heavy_tab is None else _i32(heavy_tab, dev))
+        self._tables = (_i32(slots, dev),) + csr + (
+            None if heavy_tab is None else _i32(heavy_tab, dev),)
 
     def _build_heavy_tab(self, di: DeviceIndex, slots: np.ndarray):
         """Side table with one padded row per heavy bucket (depth > C0):
-        word 0 = true count, then TP (enc, mask-word) entry pairs; the
-        owning slots row's count word is patched to
-        min(cnt, 255) | (heavy_id + 1) << 8 (see the reference). Returns
-        None (CSR tail) when the id doesn't fit 24 bits or the table would
-        exceed HEAVY_TAB_CAP."""
+        word 0 = true count, then TP (enc, aux) entry pairs, aux the mask
+        word when W == 1, else the se id (the tail gathers the mask words
+        by it, as the reference's use_mask). The owning slots row's count
+        word is patched to min(cnt, 255) | (heavy_id + 1) << 8 (see the
+        reference). Returns None (CSR tail) when the id doesn't fit 24 bits
+        or the table would exceed HEAVY_TAB_CAP."""
         counts = np.diff(di.row_start)
         heavy = np.flatnonzero(counts > self.C0)
         n_h = len(heavy)
@@ -269,8 +272,11 @@ class QueryEngine:
             valid = pos < ends
             pv = np.where(valid, pos, 0)
             htab[:, 1 + 2 * j] = np.where(valid, di.enc_v[pv], 0)
-            htab[:, 2 + 2 * j] = np.where(valid,
-                                          di.se_mask[di.se_v[pv]][:, 0], 0)
+            if self.W == 1:
+                aux = di.se_mask[di.se_v[pv]][:, 0]
+            else:
+                aux = di.se_v[pv].astype(np.uint32)
+            htab[:, 2 + 2 * j] = np.where(valid, aux, 0)
         slots[heavy, 0] = (np.minimum(counts[heavy], 255).astype(np.uint32)
                            | ((np.arange(n_h, dtype=np.uint32) + 1) << 8))
         return htab
@@ -322,17 +328,19 @@ class QueryEngine:
         return (self.hflavor == "embed" and self.W == 1 and self.C0 <= 2
                 and self.th + 1 <= MAX_X and P <= MAX_P and self.S <= MAX_S)
 
-    def _dense_epilogue(self, d, res2, light, B: int, P: int):
-        """First-C0-slot probe epilogue -> (hist [2B,S,X], minall [2B]),
-        through the packed kernel; d: gathered rows [2, B, P, width]."""
-        if not self._packed_epilogue_ok(P):
-            raise NotImplementedError(
-                f"reads with {P} > {MAX_P} k-mer positions need the tiled "
-                "epilogue kernel (ROADMAP Queue 1, slice 2)")
+    def _dense_epilogue(self, d, mask_tab, res2, light, B: int, P: int):
+        """First-C0-slot probe epilogue -> (hist [2B,S,X], minall [2B]);
+        d: gathered rows [2, B, P, width]. The packed kernel where its gate
+        allows, else the tiles kernel ('se' rows read their mask words
+        through mask_tab inside it)."""
         N = 2 * B
-        return probe_hist_packed(res2.reshape(N, P), light.reshape(N, P),
-                                 d.reshape(N, P, d.shape[-1]), self.th,
-                                 self.C0, self.S)
+        args = (res2.reshape(N, P), light.reshape(N, P),
+                d.reshape(N, P, d.shape[-1]))
+        if self._packed_epilogue_ok(P):
+            return probe_hist_packed(*args, self.th, self.C0, self.S)
+        return probe_hist_tiles(
+            *args, mask_tab if self.hflavor == "se" else None, self.th,
+            self.C0, self.W, self.S)
 
     def _hybrid_core(self, slots_d, enc_se, row_start, mask_tab, sidx, hrow,
                      resident, res2, max_bucket: int, tier: int = 0,
@@ -351,7 +359,7 @@ class QueryEngine:
         cnt = torch.where(resident, cnt_c, 0)
         heavy = cnt > C0
         light = resident & ~heavy
-        hist, minall = self._dense_epilogue(d, res2, light, B, P)
+        hist, minall = self._dense_epilogue(d, mask_tab, res2, light, B, P)
 
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         if max_bucket <= C0:
@@ -381,10 +389,15 @@ class QueryEngine:
             hcnt = torch.where(live, hrow_t[:, 0], 0)
             penc = hrow_t[:, 1::2]
             hd = codec.hdist_lr32(penc, hres[:, None])
+            aux = hrow_t[:, 2::2]                        # mask word | se
             jj = torch.arange(MB, dtype=torch.int32, device=dev)
             inb = jj[None, :] < torch.clamp(hcnt, max=MB)[:, None]
             match = inb & (hd <= th)
-            msk = torch.where(match, hrow_t[:, 2::2], 0)[..., None]
+            if self.W == 1:
+                msk = torch.where(match, aux, 0)[..., None]   # [K, MB, 1]
+            else:
+                sev = torch.where(match, aux, 0).to(torch.int64)
+                msk = mask_tab[sev]                          # [K, MB, W]
         else:
             # CSR tail: route through row_start
             hurow = hrow.reshape(Np)[safe_l]
@@ -431,13 +444,17 @@ class QueryEngine:
             Mm[:, di_live] = Mm[:, di_live] | Mm2[:, dlive]
             hgmin = hgmin.scatter_reduce(
                 0, dsafe, torch.where(dlive, gmin2, HD_SENTINEL), "amin")
-        # per-(lane, leaf) minimum class -> one-hot counts per read
+        # per-(lane, leaf) minimum class -> one-hot counts per read, in lane
+        # chunks that keep the [rows, S, X] one-hot under ONEHOT_ELEMS
         mh = torch.full((Kl, S), X, dtype=torch.int32, device=dev)
         for x in range(X - 1, -1, -1):
             mh = torch.where(self._expand(Mm[x]) != 0, x, mh)
-        onehot = (mh[..., None] == torch.arange(
-            X, dtype=torch.int32, device=dev)) & live[:, None, None]
-        hist = hist.index_add(0, seg, onehot.to(torch.int32))
+        xs = torch.arange(X, dtype=torch.int32, device=dev)
+        rows = max(1, ONEHOT_ELEMS // (S * X))
+        for lo in range(0, Kl, rows):
+            onehot = ((mh[lo: lo + rows, :, None] == xs)
+                      & live[lo: lo + rows, None, None])
+            hist.index_add_(0, seg[lo: lo + rows], onehot.to(torch.int32))
         hgmin = torch.where(live, hgmin, HD_SENTINEL)
         minh = torch.full((N,), HD_SENTINEL, dtype=torch.int32, device=dev)
         minh = minh.scatter_reduce(0, seg, hgmin, "amin")
@@ -460,9 +477,26 @@ class QueryEngine:
         minall = minall.reshape(2, B)
         return (hist[0], hist[1], minall[0], minall[1], onmers, overflow)
 
+    def _probe_csr(self, tables, codes, lengths):
+        """CSR-mode probe, strand by strand through the top-k bounded scan
+        (ref: engine.py _strand_probe)."""
+        enc_se, row_start, row_ids, mask_tab = tables
+        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+        outs = []
+        for strand in range(2):
+            urow, resident = self._urow(rix2[strand], valid)
+            start, cnt = _csr_bucket_slices(row_start, row_ids, urow,
+                                            resident)
+            outs.append(probe_strand(
+                enc_se, mask_tab, self._expand, start, cnt, res2[strand],
+                self.th, self.W, self.S, self.di.max_bucket))
+        (hist_or, min_or, ov_or), (hist_rc, min_rc, ov_rc) = outs
+        return hist_or, hist_rc, min_or, min_rc, onmers, ov_or | ov_rc
+
     def _probe_csr_exact(self, tables, codes, lengths):
-        """Exact full-depth CSR scan of every probe (overflow fallback)."""
-        _, enc_se, row_start, row_ids, mask_tab, _ = tables
+        """Exact full-depth CSR scan of every probe: CSR mode's exact run
+        and the hybrid overflow fallback. tables: the CSR tables."""
+        enc_se, row_start, row_ids, mask_tab = tables
         rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
         urow, resident = self._urow(rix2, valid[None])
         start, cnt = _csr_bucket_slices(row_start, row_ids, urow, resident)
@@ -481,8 +515,11 @@ class QueryEngine:
     def _probe_impl(self, tables, codes, lengths, exact: bool = False,
                     tier: int = 0):
         """(hist_or, hist_rc, minall_or, minall_rc, onmers, overflow)."""
+        csr = tables if self.mode == "csr" else tables[1:5]
         if exact:
-            return self._probe_csr_exact(tables, codes, lengths)
+            return self._probe_csr_exact(csr, codes, lengths)
+        if self.mode == "csr":
+            return self._probe_csr(csr, codes, lengths)
         return self._probe_hybrid(tables, codes, lengths, tier)
 
     # ------------------------------------------------------------- stage 2

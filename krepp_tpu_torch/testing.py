@@ -107,3 +107,54 @@ def epilogue_inputs(rng, N, P, C0, S, th, dark=False):
         d[..., 2 + 2 * c] = np.where(rng.random((N, P)) < 0.1,
                                      np.uint32(0), msk)
     return res, light, d
+
+
+def tiles_inputs(rng, N, P, C0, W, S, th, flavor="embed", dark=False,
+                 nse=97):
+    """Random inputs of probe_hist_tiles with planted near matches:
+    (res [N, P] u32, light [N, P] bool, d [N, P, width] u32 gathered bucket
+    rows, mask_tab [nse, W] u32 or None). flavor "embed" puts each
+    candidate's W mask words after its enc (width 1 + C0(1+W)); "se" stores
+    enc_c at 1 + c and a color id at 1 + C0 + c into mask_tab (width
+    1 + 2 C0). Candidates are 0..th+1 bit flips from the residual; about a
+    tenth of the masks are all zero (no match); mask bits sit below S.
+    dark=True clears light."""
+    res = rng.integers(0, 2 ** 32, (N, P), dtype=np.uint32)
+    light = (rng.random((N, P)) < 0.7) & (not dark)
+
+    def masks(shape):
+        m = rng.integers(0, 2 ** 32, shape + (W,), dtype=np.uint32)
+        # sparse leaf sets as well as dense ones
+        m &= np.where(rng.random(shape + (W,)) < 0.5,
+                      rng.integers(0, 2 ** 32, shape + (W,), dtype=np.uint32),
+                      np.uint32(0xFFFFFFFF))
+        top = S - 32 * (W - 1)
+        m[..., W - 1] &= np.uint32((1 << top) - 1 if top < 32
+                                   else 0xFFFFFFFF)
+        m[rng.random(shape) < 0.1] = 0
+        return m
+
+    encs = []
+    for _ in range(C0):
+        flips = rng.integers(0, th + 2, (N, P))
+        enc = res.copy()
+        for b in range(th + 1):
+            bit = rng.integers(0, 16, (N, P)).astype(np.uint32)
+            enc ^= np.where(flips > b, np.uint32(1) << bit, np.uint32(0))
+        encs.append(np.where(rng.random((N, P)) < 0.6, enc,
+                             rng.integers(0, 2 ** 32, (N, P),
+                                          dtype=np.uint32)))
+    if flavor == "embed":
+        d = rng.integers(0, 2 ** 32, (N, P, 1 + C0 * (1 + W)), dtype=np.uint32)
+        for c in range(C0):
+            col = 1 + c * (1 + W)
+            d[..., col] = encs[c]
+            d[..., col + 1: col + 1 + W] = masks((N, P))
+        return res, light, d, None
+    mask_tab = masks((nse,))
+    mask_tab[0] = 0                     # the empty color, as in an index
+    d = rng.integers(0, 2 ** 32, (N, P, 1 + 2 * C0), dtype=np.uint32)
+    for c in range(C0):
+        d[..., 1 + c] = encs[c]
+        d[..., 1 + C0 + c] = rng.integers(0, nse, (N, P)).astype(np.uint32)
+    return res, light, d, mask_tab

@@ -1,6 +1,7 @@
 """Port `run_dist` and CLI vs krepp_tpu's: byte-identical TSV on the
-world of tests/test_e2e_dist.py in every report mode, and the CLI framing
-of tests/test_readme_golden.py."""
+world of tests/test_e2e_dist.py in every report mode and on 48- and
+80-leaf worlds with short and long reads, and the CLI framing of
+tests/test_readme_golden.py."""
 
 import io
 import os
@@ -80,6 +81,57 @@ def test_run_dist_tsv_is_byte_identical(world, mode):
     assert got.getvalue() == want.getvalue()
     assert len(got.getvalue().splitlines()) > 3
     assert stats["mode"] == "hybrid" and stats["escalations"] == [0]
+
+
+@pytest.fixture(scope="module", params=[48, 80])
+def wide_world(request, tmp_path_factory):
+    """A 48-leaf (embed rows, W = 2) or 80-leaf ('se' rows, W = 3) world
+    built by each package from FASTA, with 150-bp and 400-bp reads."""
+    nleaves = request.param
+    rng = np.random.default_rng(nleaves)
+    d = tmp_path_factory.mktemp(f"torch_dist_wide{nleaves}")
+    nwk, genomes = worldgen.make_world(rng, nleaves=nleaves, glen=1600,
+                                       rate=0.05)
+    input_map = []
+    for name in sorted(genomes):
+        p = d / f"{name}.fna"
+        with open(p, "w") as f:
+            for i, contig in enumerate(genomes[name]):
+                f.write(f">{name}_c{i}\n{contig}\n")
+        input_map.append((name, str(p)))
+    params = IndexParams(lsh=LSHParams.generate(27, 11, 2, seed=5),
+                         w=35, r=1, frac=True)
+    tree = Tree.parse(nwk)
+    jdi = JDeviceIndex.from_built(
+        jbuild_index(input_map, params, tree, progress=False))
+    tdi = DeviceIndex.from_built(build_index(input_map, params, tree,
+                                             progress=False))
+    queries = {}
+    for tag, rlen in (("short", 150), ("long", 400)):
+        queries[tag] = str(d / f"{tag}.fq")
+        with open(queries[tag], "w") as f:
+            for rid, seq in worldgen.sample_reads(rng, genomes, n=12,
+                                                  rlen=rlen, mut=0.04):
+                f.write(f"@{rid}\n{seq}\n+\n{'I' * len(seq)}\n")
+    return nleaves, jdi, tdi, queries
+
+
+@pytest.mark.parametrize("reads", ["short", "long"])
+@pytest.mark.parametrize("mode", ["default", "filter"])
+def test_wide_run_dist_tsv_is_byte_identical(wide_world, reads, mode):
+    nleaves, jdi, tdi, queries = wide_world
+    want = io.StringIO()
+    jrun_dist(jdi, queries[reads], want, "inv", JDistConfig(**MODES[mode]))
+    got = io.StringIO()
+    stats = {}
+    n = run_dist(tdi, queries[reads], got, "inv", DistConfig(**MODES[mode]),
+                 device="cpu", stats=stats)
+    assert n == 14
+    assert got.getvalue() == want.getvalue()
+    assert len(got.getvalue().splitlines()) > 10
+    assert stats["mode"] == "hybrid"
+    assert (stats["hflavor"], stats["W"]) == (
+        ("embed", 2) if nleaves == 48 else ("se", 3))
 
 
 def _cli(d, *args):

@@ -1,8 +1,10 @@
 """Port QueryEngine vs krepp_tpu's on the same worlds and reads: the probe
-6-tuple (dense, sparse and deep-bucket worlds, heavy-table and CSR tails,
+6-tuple (dense, sparse and deep-bucket worlds; 48-, 80- and 256-leaf
+worlds; long reads and hdist_th = 6; heavy-table and CSR tails; CSR mode;
 forced capacity overflow), the fused step in every out_mode, and the
 overflow escalation in fetch_prefetched. Integers must be equal, f64
-within 5e-9."""
+within 5e-9. Where the JAX engine can run its Pallas epilogue (interpret
+mode), the port is held against both of its forms."""
 
 import numpy as np
 import pytest
@@ -30,29 +32,37 @@ WORLDS = {
     # a small row space: buckets up to 9 deep
     "deep": dict(seed=9, nleaves=8, glen=12000, k=23, h=7, w=29, m=2,
                  rate=0.02),
+    # 33-64 leaves: two mask words, embedded in the bucket rows
+    "w48": dict(seed=21, nleaves=48, glen=1200, m=2),
+    # 65-256 leaves: color ids in the rows ('se'), three and eight words
+    "w80": dict(seed=22, nleaves=80, glen=800, m=2),
+    "w256": dict(seed=23, nleaves=256, glen=400, m=2),
+    # 80 leaves over a small row space: deep buckets at W = 3
+    "deep80": dict(seed=24, nleaves=80, glen=2500, k=23, h=7, w=29, m=2,
+                   rate=0.02),
 }
 
 _CACHE = {}
 
 
-def _world(name):
-    if name not in _CACHE:
+def _world(name, rlen=150):
+    if (name, rlen) not in _CACHE:
         built, genomes, _ = jtesting.build_world_index(**WORLDS[name])
         di = JDeviceIndex.from_built(built)
         rng = np.random.default_rng(12)
-        codes = jtesting.sample_read_codes(rng, genomes, 32, rlen=150,
+        codes = jtesting.sample_read_codes(rng, genomes, 32, rlen=rlen,
                                            mut=0.08)
         codes[0, 30:34] = 4               # N bases
-        lengths = np.full(32, 150, np.int32)
+        lengths = np.full(32, rlen, np.int32)
         lengths[1] = 97                   # a short read
-        _CACHE[name] = (di, codes, lengths)
-    return _CACHE[name]
+        _CACHE[name, rlen] = (di, codes, lengths)
+    return _CACHE[name, rlen]
 
 
-def _engines(name, **overrides):
-    di, codes, lengths = _world(name)
-    je = jengine.QueryEngine(di, hdist_th=4)
-    te = engine.QueryEngine(DeviceIndex.from_reference(di), hdist_th=4,
+def _engines(name, th=4, rlen=150, **overrides):
+    di, codes, lengths = _world(name, rlen)
+    je = jengine.QueryEngine(di, hdist_th=th)
+    te = engine.QueryEngine(DeviceIndex.from_reference(di), hdist_th=th,
                             device="cpu")
     for k, v in overrides.items():
         setattr(je, k, v)
@@ -121,7 +131,9 @@ def test_probe_deep_buckets_match_reference(tail, monkeypatch):
 
 
 @pytest.mark.parametrize("name,tier", [("dense", 0), ("sparse", 0),
-                                       ("deep", 0), ("deep", 1)])
+                                       ("deep", 0), ("deep", 1),
+                                       ("w80", 0), ("deep80", 0),
+                                       ("deep80", 1)])
 def test_probe_with_tiny_heavy_caps_matches_reference(name, tier):
     je, te, codes, lengths = _engines(name, _heavy_cap_override=1)
     want = _jax_probe(je, codes, lengths, tier=tier)
@@ -169,11 +181,121 @@ def test_fetch_with_overflow_escalates_like_reference():
 
 
 def test_unported_layouts_raise():
+    """Only the event probe (an index without bitmasks) is unported;
+    hdist_th = 6 runs, through the tiles epilogue, as the reference."""
     di, _, _ = _world("dense")
     tdi = DeviceIndex.from_reference(di)
     tdi.se_mask = None                    # a many-genome (event) index
     with pytest.raises(NotImplementedError, match="slice 4"):
         engine.QueryEngine(tdi, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        engine.QueryEngine(DeviceIndex.from_reference(di), hdist_th=6,
-                           device="cpu")
+    je, te, codes, lengths = _engines("dense", th=6)
+    assert not te._packed_epilogue_ok(codes.shape[1] - te.lsh.k + 1)
+    _assert_tuple_equal(_jax_probe(je, codes, lengths),
+                        _torch_probe(te, codes, lengths))
+
+
+def _both_forms(je, te, codes, lengths):
+    """The port's probe vs the JAX engine's XLA and Pallas-interpret
+    forms; returns the port's tuple."""
+    got = _torch_probe(te, codes, lengths)
+    for use_pallas in (False, True):
+        je._use_pallas = use_pallas
+        _assert_tuple_equal(_jax_probe(je, codes, lengths), got)
+    assert got[0].sum() > 0 and (got[2] < 255).any()
+    return got
+
+
+@pytest.mark.parametrize("name,flavor,W", [("w48", "embed", 2),
+                                           ("w80", "se", 3),
+                                           ("w256", "se", 8)])
+def test_wide_probe_matches_reference(name, flavor, W):
+    je, te, codes, lengths = _engines(name)
+    assert te.mode == je.mode == "hybrid"
+    assert (te.hflavor, te.W, te.S) == (je.hflavor, je.W, je.S)
+    assert te.hflavor == flavor and te.W == W
+    _both_forms(je, te, codes, lengths)
+
+
+@pytest.mark.parametrize("name,rlen,th", [("dense", 300, 4),
+                                          ("dense", 150, 6),
+                                          ("w80", 300, 6)])
+def test_long_reads_and_wide_th_match_reference(name, rlen, th):
+    je, te, codes, lengths = _engines(name, th=th, rlen=rlen)
+    assert not te._packed_epilogue_ok(codes.shape[1] - te.lsh.k + 1)
+    _both_forms(je, te, codes, lengths)
+
+
+@pytest.mark.parametrize("tail", ["heavy_table", "csr"])
+def test_wide_deep_buckets_match_reference(tail, monkeypatch):
+    """Deep buckets at W = 3: the heavy table holds se ids and the tail
+    gathers their mask words; a 4-wide tail runs the tier-B scan loop."""
+    monkeypatch.setattr(jengine, "TAIL_UNROLL", 4)
+    monkeypatch.setattr(engine, "TAIL_UNROLL", 4)
+    if tail == "csr":
+        monkeypatch.setattr(jengine.QueryEngine, "HEAVY_TAB_CAP", 0)
+        monkeypatch.setattr(engine, "HEAVY_TAB_CAP", 0)
+    # one-hot aggregation of the tail in chunks of 64 lanes
+    monkeypatch.setattr(engine, "ONEHOT_ELEMS", 64 * 80 * 5)
+    je, te, codes, lengths = _engines("deep80")
+    assert te.W == 3 and te.hflavor == "se" and te.di.max_bucket > 4
+    assert (te._tables[5] is None) == (tail == "csr")
+    _both_forms(je, te, codes, lengths)
+
+
+def _force_csr_mode(monkeypatch):
+    """No bucket-row table fits a zero memory cap: both engines take CSR
+    mode (the reference binds the cap as a default argument)."""
+    monkeypatch.setattr(engine, "DIRECT_MEM_CAP", 0)
+    monkeypatch.setattr(jengine.build_hybrid_slots, "__defaults__", (0, None))
+
+
+@pytest.mark.parametrize("name,nreads", [("deep", 8), ("w80", 32)])
+def test_csr_mode_matches_reference(name, nreads, monkeypatch):
+    """W = 1 and W = 3, buckets deeper than phase 1: the top-k tail runs
+    and does not overflow, so it equals the exact scan."""
+    _force_csr_mode(monkeypatch)
+    je, te, codes, lengths = _engines(name)
+    codes, lengths = codes[:nreads], lengths[:nreads]
+    assert te.mode == je.mode == "csr" and te.di.max_bucket > 4
+    got = _torch_probe(te, codes, lengths)
+    _assert_tuple_equal(_jax_probe(je, codes, lengths), got)
+    assert got[0].sum() > 0 and not bool(got[5])
+    exact = _torch_probe(te, codes, lengths, exact=True)
+    _assert_tuple_equal(_jax_probe(je, codes, lengths, exact=True), exact)
+    _assert_tuple_equal(got[:5], exact[:5])
+
+
+def test_csr_mode_overflow_matches_reference(monkeypatch):
+    """25-deep buckets overflow the 128-probe top-k tail of 32 reads; the
+    tail picks the same K probes as lax.top_k."""
+    _force_csr_mode(monkeypatch)
+    je, te, codes, lengths = _engines("deep80")
+    got = _torch_probe(te, codes, lengths)
+    _assert_tuple_equal(_jax_probe(je, codes, lengths), got)
+    assert bool(got[5])
+
+
+@pytest.mark.parametrize("name,rlen", [("w256", 150), ("dense", 400)])
+def test_full_step_at_width_matches_reference(name, rlen):
+    """Stage 2 and the scatter-back at S = 256, and on 400-bp reads."""
+    je, te, codes, lengths = _engines(name, rlen=rlen)
+    want = jax.device_get(tuple(je.run_leaf_stage_async(
+        codes, lengths, out_mode="full")))
+    got = te.run_leaf_stage_async(codes, lengths, out_mode="full").get()
+    _assert_tuple_equal(want, got)
+    assert got[0].any() and int(np.max(got[-1])) == 0
+
+
+def test_wide_fetch_with_overflow_escalates_like_reference():
+    je, te, codes, lengths = _engines("deep80", _heavy_cap_override=8,
+                                      _lane_cap_override=16)
+    want = je.fetch_leaf_stage(
+        je.run_leaf_stage_async(codes, lengths, out_mode="dist"), lengths,
+        codes=codes, out_mode="dist")
+    got = te.fetch_leaf_stage(
+        te.run_leaf_stage_async(codes, lengths, out_mode="dist"), lengths,
+        codes=codes, out_mode="dist")
+    assert te.escalations > 0
+    for f in ("present", "d", "closest_slot", "closest_d", "hist", "ratio",
+              "onmers"):
+        _assert_tuple_equal((getattr(want, f),), (getattr(got, f),))

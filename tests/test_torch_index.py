@@ -108,6 +108,16 @@ def test_from_reference_carries_the_state(world):
     _assert_device_index_equal(ref, got)
 
 
+@pytest.mark.parametrize("nleaves,W", [(48, 2), (256, 8)])
+def test_from_reference_carries_wide_indexes(nleaves, W):
+    jb, _, _ = jtesting.build_world_index(seed=nleaves, nleaves=nleaves,
+                                          glen=400, m=2)
+    ref = JDeviceIndex.from_built(jb)
+    got = DeviceIndex.from_reference(ref)
+    assert got.se_mask.shape[1] == W and got.nleafslots == nleaves
+    _assert_device_index_equal(ref, got)
+
+
 def test_multi_partial_and_reference_formats_raise(tmp_path):
     multi = tmp_path / "multi"
     multi.mkdir()
