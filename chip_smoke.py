@@ -3,16 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, `dist`, through its CLI on five generated
-worlds, and checks it:
+Drives the port's paths, `dist` and `place` through its CLI on generated
+worlds and the probe microbenchmark, and checks them:
 
   1. device: CUDA must be available; prints the card and its power limit;
   2. build: compiles the CUDA kernels from the checkout, one nvcc per
      source, all started together;
-  3. kernels vs plain: probe_hist_packed, probe_hist_tiles and hdist_chunk
-     against their plain torch versions on the card, bit-equal, at the
-     main path's shapes and edge shapes, with median times from CUDA
-     events;
+  3. kernels vs plain: probe_hist_packed, probe_hist_tiles, hdist_chunk
+     and dma_gather against their plain torch versions on the card,
+     bit-equal, at the main path's shapes and edge shapes, with median
+     times from CUDA events;
   4. base world: bench.py's "base" configuration (24 genomes x 500 kbp,
      k=27 h=11 w=35 m=4); builds the index, saves it, writes 65,536 reads
      of 150 bp as FASTQ;
@@ -34,13 +34,24 @@ worlds, and checks it:
      words, 'se' bucket rows), 65,536 reads: dist through the CLI on cuda
      through probe_hist_tiles only, the first 1,024 reads against the host,
      reads/s (warm-up + 3 timed passes), and one profiled pass (device
-     busy share, device time by kernel).
+     busy share, device time by kernel);
+ 12. the probe microbenchmark (krepp_tpu_torch.tools.probe_microbench) at
+     the reference tool's sizes on cuda, its row gather through dma_gather;
+ 13. place on the base index through the CLI on cuda: the jplace parses,
+     each read at most once, the dense stage-3 formulation, through
+     probe_hist_packed (not the tiles kernel); its first 2,048 reads
+     against --device cpu (the same edges per read; distance, LWR and
+     likelihood within one unit of the 5-decimal grid);
+ 14. the same on the wide index: the lane formulation, through
+     probe_hist_tiles; host check on the first 1,024 reads;
+ 15. place reads/s on base and wide (warm-up + 3 timed passes) and one
+     profiled place pass on wide.
 
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
-before the last is the kernels JSON (launches: counted over the CLI dist
-runs on cuda of phases 5, 7, 9, 10 and 11); the last line is
-{"ok": true, "device": {...}}. Without a card it exits 1 and prints no
-result.
+before the last is the kernels JSON (launches: counted over the CLI runs on
+cuda of phases 5, 7, 9, 10, 11, 13 and 14, and for dma_gather over the
+microbenchmark of phase 12); the last line is {"ok": true, "device":
+{...}}. Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -75,11 +86,14 @@ CPU_READS = 2048
 WIDE_CPU_READS = 1024
 DIST_TOL = 1e-5                               # one unit of the output grid
 ROW_RE = re.compile(r"[^\t]+\t[^\t]+\t(\d+\.\d{5}|NaN)")
-KERNELS = ("probe_hist_packed", "probe_hist_tiles", "hdist_chunk")
+KERNELS = ("probe_hist_packed", "probe_hist_tiles", "hdist_chunk",
+           "dma_gather")
+EPILOGUES = {"probe_hist_packed", "probe_hist_tiles"}
 REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
     "probe_hist_packed": "krepp_tpu/query/pallas_kernels.py:210",
     "probe_hist_tiles": "krepp_tpu/query/pallas_kernels.py:93",
     "hdist_chunk": "krepp_tpu/query/pallas_kernels.py:28",
+    "dma_gather": "tools/probe_microbench.py:157",
 }
 
 
@@ -134,7 +148,8 @@ def _compare(label: str, got, want, main: bool, kernel, ref, args,
     import torch
 
     torch.cuda.synchronize()
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    err = max((int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+              for g, w in zip(got, want))
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           f"{kernel.__name__} != plain at {label} (max abs err {err})")
     check(dark or bool((want[-1] < 255).any()),
@@ -217,6 +232,26 @@ def kernels_vs_plain():
                      kernels.hdist_chunk_ref(*args), i == 0,
                      kernels.hdist_chunk, kernels.hdist_chunk_ref, args)
         result.setdefault("hdist_chunk", r)
+    gather = [  # (label, nrows, width, n, rows per block)
+        ("main [2M x 5] n=1M tile 256", 2 << 20, 5, 1 << 20, 256),
+        ("tile 512", 2 << 20, 5, 1 << 20, 512),
+        ("odd n=1000003", 2 << 20, 5, 1000003, 256),
+        ("width 1", 2 << 20, 1, 1 << 20, 256),
+        ("width 9", 1 << 20, 9, 1000003, 512),
+        ("[32M x 5] n=4M", 32 << 20, 5, 4 << 20, 256),
+        ("n=0", 1000, 5, 0, 256),
+    ]
+    for i, (label, nrows, width, n, rows) in enumerate(gather):
+        tab = torch.randint(-2 ** 31, 2 ** 31, (nrows, width),
+                            dtype=torch.int32, device="cuda")
+        idx = torch.randint(0, nrows, (n,), dtype=torch.int32,
+                            device="cuda")
+        r = _compare(label, (kernels.dma_gather(tab, idx, rows),),
+                     (kernels.dma_gather_ref(tab, idx, rows),), i == 0,
+                     kernels.dma_gather, kernels.dma_gather_ref,
+                     (tab, idx, rows), dark=True)     # no match counts
+        result.setdefault("dma_gather", r)
+        del tab, idx
     return result
 
 
@@ -260,8 +295,30 @@ def run_cli(argv):
         rc = cli.main(["--verbose"] + argv)
     text = err.getvalue()
     sys.stderr.write(text)
-    stats = json.loads(text.split("dist stats: ", 1)[1].splitlines()[0])
+    stats = json.loads(text.split(f"{argv[0]} stats: ", 1)[1]
+                       .splitlines()[0])
     return rc, stats
+
+
+def counted_run(argv, launched: str, total: dict):
+    """run_cli with every kernel count set to 0 just before and read just
+    after: `launched` must have run and the other epilogue kernel not. Adds
+    the counts to `total`; returns (stats, counts, seconds)."""
+    from krepp_tpu_torch.query import kernels
+
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+    t0 = time.time()
+    rc, stats = run_cli(argv)
+    dt = time.time() - t0
+    counts = {name: getattr(kernels, name).launches for name in KERNELS}
+    check(rc == 0, f"cli returned {rc}")
+    other = (EPILOGUES - {launched}).pop()
+    check(counts[launched] > 0, f"{launched} was not launched on this path")
+    check(counts[other] == 0, f"{other} was launched on this path")
+    for name, c in counts.items():
+        total[name] += c
+    return stats, counts, dt
 
 
 def read_rows(path: str):
@@ -282,27 +339,14 @@ def dist_on_card(n: int, idx: str, fq: str, out: str, nreads: int,
     before and read just after: `launched` must run, the other epilogue
     kernel must not, and (hflavor, W) must be `layout`. Adds the counts to
     `total`."""
-    from krepp_tpu_torch.query import kernels
-
-    for name in KERNELS:
-        getattr(kernels, name).launches = 0
-    t0 = time.time()
-    rc, stats = run_cli(["dist", "-q", fq, "-i", idx, "-o", out,
-                         "--device", "cuda"])
-    dt = time.time() - t0
-    counts = {name: getattr(kernels, name).launches for name in KERNELS}
-    check(rc == 0, f"cli returned {rc}")
+    stats, counts, dt = counted_run(["dist", "-q", fq, "-i", idx, "-o", out,
+                                     "--device", "cuda"], launched, total)
     rows = read_rows(out)
     nids = len({r.split("\t", 1)[0] for r in rows})
     check(nids == nreads, f"{nids} reads answered of {nreads}")
     check(stats["mode"] == "hybrid", f"engine mode {stats['mode']}")
     check((stats["hflavor"], stats["W"]) == layout,
           f"bucket rows {stats['hflavor']}, W={stats['W']}; want {layout}")
-    other = ({"probe_hist_packed", "probe_hist_tiles"} - {launched}).pop()
-    check(counts[launched] > 0, f"{launched} was not launched on this path")
-    check(counts[other] == 0, f"{other} was launched on this path")
-    for name, c in counts.items():
-        total[name] += c
     phase(n, f"dist on cuda: {nreads} reads, {len(rows)} rows, "
              f"{dt:.2f} s with index load; mode={stats['mode']}, "
              f"hflavor={stats['hflavor']}, W={stats['W']}, launches={counts}, "
@@ -338,47 +382,54 @@ def gpu_vs_cpu(n: int, idx: str, fq_cpu: str, out_gpu: str, out_cpu: str,
              f"{ndiff}")
 
 
-def throughput(n: int, name: str, idx: str, fq: str, card: str):
-    """dist reads/s (index loaded once): a warm-up, then 3 timed passes."""
+def throughput(n: int, name: str, idx: str, fq: str, card: str,
+               cmd: str = "dist"):
+    """dist or place reads/s (index loaded once): a warm-up, then 3 timed
+    passes. Returns a function running one more pass."""
     import torch
 
     from krepp_tpu_torch.index.artifact import load_index
     from krepp_tpu_torch.query.dist import DistConfig, run_dist
     from krepp_tpu_torch.query.engine import QueryEngine
+    from krepp_tpu_torch.query.place import PlaceConfig, run_place
 
     eng = QueryEngine(load_index(idx), 4, device="cuda")
+
+    def one_pass():
+        with open(os.devnull, "w") as sink:
+            if cmd == "place":
+                return run_place(eng.di, fq, sink, "smoke", PlaceConfig(),
+                                 engine_factory=lambda di, th: eng)
+            return run_dist(eng.di, fq, sink, "smoke", DistConfig(),
+                            engine_factory=lambda di, th: eng)
+
     rates = []
     for rep in range(4):
-        with open(os.devnull, "w") as sink:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            nr = run_dist(eng.di, fq, sink, "smoke", DistConfig(),
-                          engine_factory=lambda di, th: eng)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nr = one_pass()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
         if rep:
             rates.append(nr / dt)
             phase(n, f"pass {rep}: {nr / dt:.1f} reads/s ({dt:.3f} s) "
                      f"on {card}")
     med = statistics.median(rates)
-    phase(n, f"dist {name}: median {med:.1f} reads/s, spread "
+    phase(n, f"{cmd} {name}: median {med:.1f} reads/s, spread "
              f"{max(rates) / min(rates):.3f}x (max/min of 3) on {card}")
-    return eng
+    return one_pass
 
 
-def profile_pass(n: int, eng, fq: str):
-    """One dist pass under torch.profiler: wall time, device busy time and
-    the device time of the top kernels."""
+def profile_pass(n: int, one_pass):
+    """One pass under torch.profiler: wall time, device busy time and the
+    device time of the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from krepp_tpu_torch.query.dist import DistConfig, run_dist
-
-    with open(os.devnull, "w") as sink, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_dist(eng.di, fq, sink, "smoke", DistConfig(),
-                 engine_factory=lambda di, th: eng)
+        one_pass()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -395,6 +446,95 @@ def profile_pass(n: int, eng, fq: str):
     for e in top + ours:
         phase(n, f"  {e.self_device_time_total / 1e3:9.3f} ms "
                  f"x{e.count:<6d} {e.key[:90]}")
+
+
+def microbench(n: int, total: dict):
+    """The ported probe microbenchmark at the reference tool's sizes; its
+    row-gather section must launch dma_gather."""
+    from krepp_tpu_torch.query import kernels
+    from krepp_tpu_torch.tools import probe_microbench
+
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+    buf = io.StringIO()
+    probe_microbench.run("cuda", out=buf)
+    launches = kernels.dma_gather.launches
+    for line in buf.getvalue().splitlines():
+        phase(n, line)
+    check(launches > 0, "the microbenchmark did not launch dma_gather")
+    total["dma_gather"] += launches
+    phase(n, f"dma_gather launches: {launches}")
+
+
+def read_jplace(path: str, nreads: int):
+    """Parse a jplace; checks the query count (nreads) and that no read
+    appears twice. Returns {read: [row, ...]}."""
+    with open(path) as f:
+        doc = json.load(f)
+    check(doc["version"] == 3 and len(doc["fields"]) == 6,
+          f"bad jplace framing in {path}")
+    check(doc["metadata"]["num_queries"] == str(nreads),
+          f"num_queries {doc['metadata']['num_queries']} != {nreads}")
+    by_read = {}
+    for e in doc["placements"]:
+        (name,) = e["n"]
+        check(name not in by_read, f"read {name} placed twice")
+        check(len(e["p"]) > 0 and all(len(r) == 6 for r in e["p"]),
+              f"bad placement rows for {name}")
+        by_read[name] = e["p"]
+    return by_read
+
+
+def place_on_card(n: int, idx: str, fq: str, out: str, nreads: int,
+                  launched: str, formulation: str, total: dict):
+    """place through the CLI on cuda: a parsable jplace, each read at most
+    once, the expected stage-3 formulation and epilogue kernel."""
+    stats, counts, dt = counted_run(["place", "-q", fq, "-i", idx, "-o", out,
+                                     "--device", "cuda"], launched, total)
+    check(stats["formulation"] == formulation,
+          f"stage-3 formulation {stats['formulation']}, want {formulation}")
+    placed = read_jplace(out, nreads)
+    check(len(placed) > nreads // 2, f"only {len(placed)} of {nreads} reads "
+                                     "placed")
+    nrows = sum(len(p) for p in placed.values())
+    phase(n, f"place on cuda: {nreads} reads, {len(placed)} placed, {nrows} "
+             f"rows, {dt:.2f} s with index load; formulation="
+             f"{stats['formulation']}, hflavor={stats['hflavor']}, "
+             f"W={stats['W']}, launches={counts}, tier re-runs per batch="
+             f"{stats['escalations']}")
+
+
+def place_vs_host(n: int, idx: str, fq_cpu: str, out_gpu: str, nreads: int,
+                  out_cpu: str, ncpu: int):
+    """The first ncpu reads through --device cpu: the same reads placed on
+    the same edges; distance, LWR and likelihood within one unit of the
+    5-decimal grid."""
+    rc, _ = run_cli(["place", "-q", fq_cpu, "-i", idx, "-o", out_cpu,
+                     "--device", "cpu"])
+    check(rc == 0, f"cpu cli returned {rc}")
+    cpu = read_jplace(out_cpu, ncpu)
+    keep = {f"r{i}" for i in range(ncpu)}
+    gpu = {r: p for r, p in read_jplace(out_gpu, nreads).items() if r in keep}
+    check(gpu.keys() == cpu.keys(),
+          f"placed read sets differ: {len(gpu.keys() ^ cpu.keys())} reads")
+    worst = 0
+    ndiff = nrows = 0
+    for r, crows in cpu.items():
+        g = {row[0]: row for row in gpu[r]}
+        c = {row[0]: row for row in crows}
+        check(g.keys() == c.keys(), f"read {r}: edges {sorted(g)} on cuda, "
+                                    f"{sorted(c)} on the host")
+        for e, crow in c.items():
+            nrows += 1
+            ndiff += g[e] != crow
+            for j in (3, 4, 5):              # likelihood, LWR, distance
+                if not (math.isnan(g[e][j]) and math.isnan(crow[j])):
+                    units = abs(round(g[e][j] * 1e5) - round(crow[j] * 1e5))
+                    worst = max(worst, units)
+    check(worst <= 1, f"a field differs by {worst} units of 1e-5")
+    phase(n, f"cuda vs cpu on {ncpu} reads: {len(cpu)} placed, {nrows} rows "
+             f"on the same edges, max diff {worst} x 1e-5, rows differing in "
+             f"bytes {ndiff}")
 
 
 def main() -> int:
@@ -506,10 +646,32 @@ def main() -> int:
                          ("se", 8), launches)
             gpu_vs_cpu(11, widx, wfq_cpu, wout,
                        os.path.join(root, "wide_cpu.tsv"), WIDE_CPU_READS)
-            eng = throughput(11, "wide", widx, wfq, card)
-            profile_pass(11, eng, wfq)
+            profile_pass(11, throughput(11, "wide", widx, wfq, card))
 
-    phase(12, f"total {time.time() - t_start:.1f} s")
+        with timed(12, "probe microbenchmark"):
+            microbench(12, launches)
+
+        with timed(13, "base place"):
+            pout = os.path.join(root, "base_gpu.jplace")
+            place_on_card(13, idx, fq, pout, BASE_READS, "probe_hist_packed",
+                          "dense", launches)
+            place_vs_host(13, idx, fq_cpu, pout, BASE_READS,
+                          os.path.join(root, "base_cpu.jplace"), CPU_READS)
+
+        with timed(14, "wide place"):
+            wpout = os.path.join(root, "wide_gpu.jplace")
+            place_on_card(14, widx, wfq, wpout, WIDE_READS,
+                          "probe_hist_tiles", "lanes", launches)
+            place_vs_host(14, widx, wfq_cpu, wpout, WIDE_READS,
+                          os.path.join(root, "wide_cpu.jplace"),
+                          WIDE_CPU_READS)
+
+        with timed(15, "place reads/s"):
+            throughput(15, "base", idx, fq, card, cmd="place")
+            profile_pass(15, throughput(15, "wide", widx, wfq, card,
+                                        cmd="place"))
+
+    phase(16, f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"krepp_tpu_torch/csrc/{name}.cu",

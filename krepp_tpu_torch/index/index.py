@@ -1,4 +1,5 @@
-"""DeviceIndex: the frozen LSH table + colors, unified for querying.
+"""DeviceIndex: the frozen LSH table + colors, unified for querying, and
+PlacementView, the index joined with a placement tree.
 
 JAX-free copy of the numpy layout code of krepp_tpu/index/index.py (that
 module imports krepp_tpu.index.build, which imports JAX). The unified CSR
@@ -21,8 +22,8 @@ import numpy as np
 
 from krepp_tpu.index.colors import ColorTable
 from krepp_tpu.params import IndexParams, LSHParams
-from krepp_tpu.tree.flat import FlatTree
-from krepp_tpu.tree.newick import Tree
+from krepp_tpu.tree.flat import FlatTree, placement_weights
+from krepp_tpu.tree.newick import Tree, map_to_qtree
 
 from .build import BuiltIndex
 
@@ -149,6 +150,9 @@ class DeviceIndex:
             out.res_info = dict(di.res_info)
         return out
 
+    def placement_view(self, qtree: Optional[Tree] = None) -> "PlacementView":
+        return PlacementView.create(self, qtree)
+
 
 def _sort_by_row_enc(urow: np.ndarray, enc: np.ndarray) -> np.ndarray:
     """argsort by (urow, enc) as one packed-u64 stable argsort."""
@@ -207,3 +211,40 @@ def _local_row_to_global(local: np.ndarray, p: IndexParams) -> np.ndarray:
         q, res = np.divmod(local, p.r + 1)
         return q * p.lsh.m + res
     return local * p.lsh.m + p.r
+
+
+@dataclass
+class PlacementView:
+    """Index joined with a placement (query) tree.
+
+    Captures map_to_qtree + eff_nchildren (ref: src/phytree.cpp:421-473) as
+    arrays: leaf_qse[slot] = qtree node id (0 if the leaf is absent from the
+    placement tree) and the dense ancestor-damping matrix W."""
+
+    index: DeviceIndex
+    qtree: Tree
+    qflat: FlatTree
+    leaf_qse: np.ndarray      # int32 [S]
+    weights: np.ndarray       # float64 [qn+1, S]
+    candidate_ok: np.ndarray  # bool [qn+1]: structural candidate filter
+
+    @staticmethod
+    def create(index: DeviceIndex, qtree: Optional[Tree]) -> "PlacementView":
+        if qtree is None or qtree is index.tree:
+            qtree = index.tree
+            qflat = index.ftree
+            leaf_qse = index.leaf_ses.copy()
+        else:
+            se_to_node = map_to_qtree(index.tree, qtree)
+            qflat = FlatTree.from_tree(qtree)
+            leaf_qse = np.zeros(len(index.leaf_ses), np.int32)
+            for i, se in enumerate(index.leaf_ses):
+                nd = se_to_node[int(se)]
+                leaf_qse[i] = nd.se if nd is not None else 0
+        W = placement_weights(qflat, leaf_qse)
+        # (ref: src/query.cpp:268-281): keep nodes whose children are all
+        # covered and that are not unary
+        cand = (qflat.nchildren == qflat.eff_nchildren) & (qflat.nchildren != 1)
+        cand[0] = False
+        return PlacementView(index=index, qtree=qtree, qflat=qflat,
+                             leaf_qse=leaf_qse, weights=W, candidate_ok=cand)

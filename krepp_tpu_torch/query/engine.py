@@ -1,4 +1,5 @@
-"""Query engine for `dist`: batched LSH probe + histogram + ML distance.
+"""Query engine for `dist` and `place`: batched LSH probe + histogram + ML
+distance (place runs its stage-3 steps on it through `run_step`).
 
 Port of the hybrid and CSR modes of krepp_tpu/query/engine.py (see its
 module docstring for the pipeline and the reference citations). Stage 1
@@ -23,6 +24,7 @@ lane count, and Brent's convergence check every few iterations.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -523,6 +525,20 @@ class QueryEngine:
         return self._probe_hybrid(tables, codes, lengths, tier)
 
     # ------------------------------------------------------------- stage 2
+    def _probe_and_lanes(self, tables, codes, lengths, leaf_ok,
+                         lane_cap: Optional[int], exact: bool, tier: int):
+        """Probe + lane extraction -> (L dict, onmers, probe_overflow).
+
+        The dense-histogram branch of the reference's: the probe, then
+        stage 2 on K = min(B*S, lane_cap) lanes (lane_cap None: all B*S).
+        Its event branch (indexes without bitmasks) is refused when the
+        engine is built (slice 4)."""
+        probe_out = self._probe_impl(tables, codes, lengths, exact, tier)
+        BS = codes.shape[0] * self.S
+        K = BS if lane_cap is None else min(BS, lane_cap)
+        L = self._stage2_lanes(*probe_out[:5], leaf_ok, K)
+        return L, probe_out[4], probe_out[5]
+
     def _stage2_lanes(self, hist_or, hist_rc, minall_or, minall_rc, onmers,
                       leaf_ok, K: int):
         """Leaf-level filtering + ML + strand resolution on lanes compacted
@@ -705,14 +721,12 @@ class QueryEngine:
         base_cap = self._lane_cap_override or max(8 * B, 4096)
         lane_cap = None if (exact or lane_exact) else min(
             B * S, base_cap << (2 * tier))
-        probe_out = self._probe_impl(tables, codes, lengths, exact, tier)
-        K = B * S if lane_cap is None else min(B * S, lane_cap)
-        lanes = self._stage2_lanes(*probe_out[:5], leaf_ok, K)
-        onmers = probe_out[4]
+        lanes, onmers, probe_ov = self._probe_and_lanes(
+            tables, codes, lengths, leaf_ok, lane_cap, exact, tier)
         # overflow bit-flag word: bit 0 = probe capacity (heavy tail),
         # bit 1 = stage-2 lane cap; they escalate independently
-        probe_ov = probe_out[5].to(torch.int32)
-        overflow = probe_ov | lanes["lane_over"].to(torch.int32) * 2
+        overflow = (probe_ov.to(torch.int32)
+                    | lanes["lane_over"].to(torch.int32) * 2)
         if out_mode in ("dist", "dist_ratio"):
             present = torch.zeros((B * S + 1,), dtype=torch.bool,
                                   device=codes.device)
@@ -736,14 +750,17 @@ class QueryEngine:
         return tuple(out) + (onmers, overflow)
 
     # -------------------------------------------------------------- public
-    def suggested_batch_reads(self) -> int:
+    def suggested_batch_reads(self, place: bool = False) -> int:
         """Reads per device batch keeping the dense per-(read, leaf) stage-2
-        state under ~1 GB."""
-        return max(256, (1 << 30) // (128 * max(self.S, 1)))
+        state (and the stage-3 per-(read, tree-node) state for place) under
+        ~1 GB."""
+        per_read = (256 if place else 128) * max(self.S, 1)
+        return max(256, (1 << 30) // per_read)
 
-    def _dispatch(self, codes, lengths, leaf_ok, out_mode: str,
-                  exact: bool = False, tier: int = 0,
-                  lane_exact: bool = False) -> _Pending:
+    def upload(self, codes, lengths, leaf_ok=None):
+        """Pack a host batch and place it on the device: (packed, vbits or
+        None, lengths int32, leaf_ok bool), the inputs of a step. On the
+        card the copies go through pinned memory, non-blocking."""
         dev = self.device
         if leaf_ok is None:
             leaf_ok = np.ones(self.S, bool)
@@ -757,11 +774,24 @@ class QueryEngine:
                 return t.pin_memory().to(dev, non_blocking=True)
             return t
 
-        outs = self._full_impl(
-            self._tables, up(packed), None if vbits is None else up(vbits),
-            up(np.asarray(lengths, np.int32)), up(np.asarray(leaf_ok, bool)),
-            exact=exact, out_mode=out_mode, tier=tier, lane_exact=lane_exact)
-        return _Pending(outs, dev)
+        return (up(packed), None if vbits is None else up(vbits),
+                up(np.asarray(lengths, np.int32)),
+                up(np.asarray(leaf_ok, bool)))
+
+    def run_step(self, step, codes, lengths, leaf_ok=None) -> _Pending:
+        """Upload a batch and enqueue `step(tables, packed, vbits, lengths,
+        leaf_ok)` on it (`_full_impl` for dist, a stage-3 step for place);
+        returns its pending outputs."""
+        return _Pending(step(self._tables, *self.upload(codes, lengths,
+                                                        leaf_ok)),
+                        self.device)
+
+    def _dispatch(self, codes, lengths, leaf_ok, out_mode: str,
+                  exact: bool = False, tier: int = 0,
+                  lane_exact: bool = False) -> _Pending:
+        return self.run_step(functools.partial(
+            self._full_impl, exact=exact, out_mode=out_mode, tier=tier,
+            lane_exact=lane_exact), codes, lengths, leaf_ok)
 
     def run_leaf_stage_async(self, codes: np.ndarray, lengths: np.ndarray,
                              leaf_ok: Optional[np.ndarray] = None,

@@ -1,14 +1,16 @@
 """Hand-written CUDA kernels of the probe path, with their plain versions.
 
-Each is the port of the Pallas TPU kernel of the same name in
-krepp_tpu/query/pallas_kernels.py, with its CUDA source in
-krepp_tpu_torch/csrc/<name>.cu:
+Each is the port of the Pallas TPU kernel of the same name, with its CUDA
+source in krepp_tpu_torch/csrc/<name>.cu; the first three are in
+krepp_tpu/query/pallas_kernels.py:
   * `probe_hist_packed` (TPU kernel :210-310): the packed probe epilogue,
     one mask word, S <= 32, X <= 6, P <= 255;
   * `probe_hist_tiles` (:93-207): the general probe epilogue, any P, up to
     8 mask words (S <= 256), embed or 'se' bucket rows;
   * `hdist_chunk` (:28-90): the count-gated Hamming compare of each probe
-    with its C candidates.
+    with its C candidates;
+  * `dma_gather` (tools/probe_microbench.py:157-191): a row gather of a
+    narrow u32 table, the bucket-row gather's shape.
 A wrapper launches its kernel for CUDA tensors and uses its plain torch
 version (`<name>_ref`, the same contract) only for tensors on the host. It
 never falls back from a failed build or launch. `<name>.launches` counts
@@ -313,3 +315,72 @@ def hdist_chunk(res: torch.Tensor, enc: torch.Tensor, cnt: torch.Tensor,
 
 
 hdist_chunk.launches = 0
+
+
+# --------------------------------------------------------------- row gather
+def _check_gather(tab, idx, rows_per_block: int):
+    """Validate the dma_gather contract; returns (nrows, width, n)."""
+    if tab.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"tab must be [nrows, width] and idx [n], got "
+                         f"{tuple(tab.shape)} and {tuple(idx.shape)}")
+    if tab.dtype != torch.int32 or idx.dtype != torch.int32:
+        raise TypeError(f"tab and idx must be int32, got {tab.dtype}, "
+                        f"{idx.dtype}")
+    if tab.device != idx.device:
+        raise ValueError("tab and idx must share one device")
+    if tab.shape[1] < 1 or not 1 <= rows_per_block <= 1024:
+        raise ValueError(f"width={tab.shape[1]} (>= 1), rows_per_block="
+                         f"{rows_per_block} (1..1024)")
+    return tab.shape[0], tab.shape[1], idx.shape[0]
+
+
+def dma_gather_ref(tab: torch.Tensor, idx: torch.Tensor,
+                   rows_per_block: int = 256):
+    """Plain torch version of dma_gather: out[i, :] = tab[idx[i], :].
+
+    tab [nrows, width] int32 (u32 bit patterns), idx [n] int32 with
+    0 <= idx < nrows. rows_per_block is the kernel's tiling (the TPU
+    kernel's TROWS) and does not change the result."""
+    _check_gather(tab, idx, rows_per_block)
+    return tab[idx.to(torch.int64)]
+
+
+def _gather_launcher():
+    from ..csrc.build import load
+
+    fn = load("dma_gather").krepp_dma_gather
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def dma_gather(tab: torch.Tensor, idx: torch.Tensor,
+               rows_per_block: int = 256):
+    """Row gather: the CUDA kernel for CUDA tensors, the plain version for
+    host tensors. A block of the kernel copies rows_per_block output rows
+    (1..1024). See dma_gather_ref."""
+    if tab.device.type == "cpu":
+        return dma_gather_ref(tab, idx, rows_per_block)
+    if tab.device.type != "cuda":
+        raise ValueError(f"unsupported device {tab.device}")
+    nrows, width, n = _check_gather(tab, idx, rows_per_block)
+    for name, t in (("tab", tab), ("idx", idx)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((n, width), dtype=torch.int32, device=tab.device)
+    if n == 0:
+        return out
+    fn = _gather_launcher()
+    with torch.cuda.device(tab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(tab.data_ptr(), nrows, width, idx.data_ptr(), n,
+                rows_per_block, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"dma_gather launch failed: cudaError {rc}")
+    dma_gather.launches += 1
+    return out
+
+
+dma_gather.launches = 0

@@ -159,6 +159,6 @@ def test_cli_dist_on_cpu_prints_the_reference_framing(world):
 
 def test_cli_unported_subcommand_exits_with_a_message(world):
     _, _, _, d = world
-    out = _cli(d, "place", "-q", "q.fq", "-i", "idx")
+    out = _cli(d, "sketch", "-i", "q.fq", "-o", "q.sk")
     assert out.returncode == 2
-    assert "not ported" in out.stderr and "slice 3" in out.stderr
+    assert "not ported" in out.stderr and "slice 5" in out.stderr
