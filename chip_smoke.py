@@ -45,13 +45,27 @@ worlds and the probe microbenchmark, and checks them:
  14. the same on the wide index: the lane formulation, through
      probe_hist_tiles; host check on the first 1,024 reads;
  15. place reads/s on base and wide (warm-up + 3 timed passes) and one
-     profiled place pass on wide.
+     profiled place pass on wide;
+ 16. many world: bench.py's "1k" configuration at full size (seed 13,
+     1,000 genomes x 250 kbp, k=29 h=13 w=35 m=4): no bitmask table, so
+     the event probe; 65,536 reads; dist through the CLI on cuda (mode
+     event, neither epilogue kernel launched), the first 1,024 reads
+     against the host, reads/s (warm-up + 3 timed passes, with tier
+     re-runs per pass and peak device memory) and one profiled pass;
+ 17. place on the many index the same way: the lane formulation, host
+     check on the first 1,024 reads, reads/s and one profiled pass;
+ 18. seek: `sketch` of one generated 5 Mbp genome at the sketch defaults
+     (k=26 h=10 w=32 m=4) through the CLI, `seek` of 65,536 reads at 5%
+     mutation through the CLI on cuda, the first 2,048 reads against the
+     host, reads/s (warm-up + 3 timed passes);
+ 19. inspect of the base index through the CLI: its framing, and the
+     k-mer count its color histogram sums to.
 
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
 before the last is the kernels JSON (launches: counted over the CLI runs on
-cuda of phases 5, 7, 9, 10, 11, 13 and 14, and for dma_gather over the
-microbenchmark of phase 12); the last line is {"ok": true, "device":
-{...}}. Without a card it exits 1 and prints no result.
+cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17 and 18, and for dma_gather
+over the microbenchmark of phase 12); the last line is {"ok": true,
+"device": {...}}. Without a card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -80,12 +94,19 @@ WIDE_READS = 65536
 MID = dict(seed=17, nleaves=48, glen=250_000, rate=0.05, k=27, h=11, w=35,
            m=4)
 MID_READS = 8192
+MANY = dict(seed=13, nleaves=1000, glen=250_000, rate=0.05, k=29, h=13, w=35,
+            m=4)                              # bench.py "1k", not cut
+MANY_READS = 65536
+SEEK_SEED = 19
+SEEK_GLEN = 5_000_000
+SEEK_READS = 65536
 LONG_READS = 4096
 LONG_LEN = 400
 CPU_READS = 2048
 WIDE_CPU_READS = 1024
 DIST_TOL = 1e-5                               # one unit of the output grid
 ROW_RE = re.compile(r"[^\t]+\t[^\t]+\t(\d+\.\d{5}|NaN)")
+SEEK_ROW_RE = re.compile(r"[^\t]+\t(\d+\.\d{5}|NaN)")
 KERNELS = ("probe_hist_packed", "probe_hist_tiles", "hdist_chunk",
            "dma_gather")
 EPILOGUES = {"probe_hist_packed", "probe_hist_tiles"}
@@ -300,10 +321,12 @@ def run_cli(argv):
     return rc, stats
 
 
-def counted_run(argv, launched: str, total: dict):
+def counted_run(argv, launched, total: dict):
     """run_cli with every kernel count set to 0 just before and read just
-    after: `launched` must have run and the other epilogue kernel not. Adds
-    the counts to `total`; returns (stats, counts, seconds)."""
+    after: `launched` must have run and the other epilogue kernel not; with
+    launched None (the event probe and seek, which run no kernel) neither
+    epilogue kernel may run. Adds the counts to `total`; returns (stats,
+    counts, seconds)."""
     from krepp_tpu_torch.query import kernels
 
     for name in KERNELS:
@@ -313,9 +336,14 @@ def counted_run(argv, launched: str, total: dict):
     dt = time.time() - t0
     counts = {name: getattr(kernels, name).launches for name in KERNELS}
     check(rc == 0, f"cli returned {rc}")
-    other = (EPILOGUES - {launched}).pop()
-    check(counts[launched] > 0, f"{launched} was not launched on this path")
-    check(counts[other] == 0, f"{other} was launched on this path")
+    if launched is None:
+        check(not any(counts[e] for e in EPILOGUES),
+              f"an epilogue kernel was launched on this path: {counts}")
+    else:
+        other = (EPILOGUES - {launched}).pop()
+        check(counts[launched] > 0,
+              f"{launched} was not launched on this path")
+        check(counts[other] == 0, f"{other} was launched on this path")
     for name, c in counts.items():
         total[name] += c
     return stats, counts, dt
@@ -334,17 +362,17 @@ def read_rows(path: str):
 
 
 def dist_on_card(n: int, idx: str, fq: str, out: str, nreads: int,
-                 launched: str, layout: tuple, total: dict):
+                 launched, layout: tuple, total: dict, mode: str = "hybrid"):
     """dist through the CLI on cuda with every kernel count set to 0 just
-    before and read just after: `launched` must run, the other epilogue
-    kernel must not, and (hflavor, W) must be `layout`. Adds the counts to
-    `total`."""
+    before and read just after: `launched` must run (None: no epilogue
+    kernel), the other epilogue kernel must not, the engine mode must be
+    `mode` and (hflavor, W) `layout`. Adds the counts to `total`."""
     stats, counts, dt = counted_run(["dist", "-q", fq, "-i", idx, "-o", out,
                                      "--device", "cuda"], launched, total)
     rows = read_rows(out)
     nids = len({r.split("\t", 1)[0] for r in rows})
     check(nids == nreads, f"{nids} reads answered of {nreads}")
-    check(stats["mode"] == "hybrid", f"engine mode {stats['mode']}")
+    check(stats["mode"] == mode, f"engine mode {stats['mode']}")
     check((stats["hflavor"], stats["W"]) == layout,
           f"bucket rows {stats['hflavor']}, W={stats['W']}; want {layout}")
     phase(n, f"dist on cuda: {nreads} reads, {len(rows)} rows, "
@@ -385,7 +413,8 @@ def gpu_vs_cpu(n: int, idx: str, fq_cpu: str, out_gpu: str, out_cpu: str,
 def throughput(n: int, name: str, idx: str, fq: str, card: str,
                cmd: str = "dist"):
     """dist or place reads/s (index loaded once): a warm-up, then 3 timed
-    passes. Returns a function running one more pass."""
+    passes, with the tier re-runs of each pass and the peak device memory
+    (tables included). Returns a function running one more pass."""
     import torch
 
     from krepp_tpu_torch.index.artifact import load_index
@@ -395,28 +424,38 @@ def throughput(n: int, name: str, idx: str, fq: str, card: str,
 
     eng = QueryEngine(load_index(idx), 4, device="cuda")
 
-    def one_pass():
+    def one_pass(stats=None):
         with open(os.devnull, "w") as sink:
             if cmd == "place":
                 return run_place(eng.di, fq, sink, "smoke", PlaceConfig(),
-                                 engine_factory=lambda di, th: eng)
+                                 engine_factory=lambda di, th: eng,
+                                 stats=stats)
             return run_dist(eng.di, fq, sink, "smoke", DistConfig(),
-                            engine_factory=lambda di, th: eng)
+                            engine_factory=lambda di, th: eng, stats=stats)
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     rates = []
+    reruns = []
     for rep in range(4):
+        stats = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        nr = one_pass()
+        nr = one_pass(stats)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if rep:
             rates.append(nr / dt)
+            reruns.append(sum(stats["escalations"]))
             phase(n, f"pass {rep}: {nr / dt:.1f} reads/s ({dt:.3f} s) "
                      f"on {card}")
     med = statistics.median(rates)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     phase(n, f"{cmd} {name}: median {med:.1f} reads/s, spread "
-             f"{max(rates) / min(rates):.3f}x (max/min of 3) on {card}")
+             f"{max(rates) / min(rates):.3f}x (max/min of 3), tier re-runs "
+             f"per pass {reruns} over {len(stats['escalations'])} batches, "
+             f"peak device memory {peak:.3f} GiB, mode {stats['mode']} on "
+             f"{card}")
     return one_pass
 
 
@@ -486,11 +525,14 @@ def read_jplace(path: str, nreads: int):
 
 
 def place_on_card(n: int, idx: str, fq: str, out: str, nreads: int,
-                  launched: str, formulation: str, total: dict):
+                  launched, formulation: str, total: dict,
+                  mode: str = "hybrid"):
     """place through the CLI on cuda: a parsable jplace, each read at most
-    once, the expected stage-3 formulation and epilogue kernel."""
+    once, the expected engine mode, stage-3 formulation and epilogue kernel
+    (None: none)."""
     stats, counts, dt = counted_run(["place", "-q", fq, "-i", idx, "-o", out,
                                      "--device", "cuda"], launched, total)
+    check(stats["mode"] == mode, f"engine mode {stats['mode']}")
     check(stats["formulation"] == formulation,
           f"stage-3 formulation {stats['formulation']}, want {formulation}")
     placed = read_jplace(out, nreads)
@@ -498,9 +540,10 @@ def place_on_card(n: int, idx: str, fq: str, out: str, nreads: int,
                                      "placed")
     nrows = sum(len(p) for p in placed.values())
     phase(n, f"place on cuda: {nreads} reads, {len(placed)} placed, {nrows} "
-             f"rows, {dt:.2f} s with index load; formulation="
-             f"{stats['formulation']}, hflavor={stats['hflavor']}, "
-             f"W={stats['W']}, launches={counts}, tier re-runs per batch="
+             f"rows, {dt:.2f} s with index load; mode={stats['mode']}, "
+             f"formulation={stats['formulation']}, "
+             f"hflavor={stats['hflavor']}, W={stats['W']}, "
+             f"launches={counts}, tier re-runs per batch="
              f"{stats['escalations']}")
 
 
@@ -535,6 +578,138 @@ def place_vs_host(n: int, idx: str, fq_cpu: str, out_gpu: str, nreads: int,
     phase(n, f"cuda vs cpu on {ncpu} reads: {len(cpu)} placed, {nrows} rows "
              f"on the same edges, max diff {worst} x 1e-5, rows differing in "
              f"bytes {ndiff}")
+
+
+def read_seek_rows(path: str, nreads: int):
+    """The seek report's framing and rows: one row per read, in order."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0].startswith("# software: krepp\tversion: v0.8.3"
+                              "\tinvocation :"), f"bad header in {path}")
+    check(lines[1] == "SEQ_ID\tDIST", f"bad column line in {path}")
+    rows = lines[2:]
+    check(len(rows) == nreads, f"{len(rows)} seek rows for {nreads} reads")
+    for row in rows:
+        check(SEEK_ROW_RE.fullmatch(row) is not None, f"bad row {row!r}")
+    return rows
+
+
+def seek_on_card(n: int, sk: str, fq: str, out: str, total: dict):
+    """seek through the CLI on cuda (no kernel on its path; the direct
+    bucket-row table for a shallow sketch)."""
+    stats, counts, dt = counted_run(["seek", "-q", fq, "-i", sk, "-o", out,
+                                     "--device", "cuda"], None, total)
+    check(stats["mode"] == "direct", f"seek mode {stats['mode']}")
+    rows = read_seek_rows(out, SEEK_READS)
+    found = sum(not r.endswith("\tNaN") for r in rows)
+    check(found > SEEK_READS // 2, f"only {found} reads found in the sketch")
+    phase(n, f"seek on cuda: {SEEK_READS} reads, {found} found, {dt:.2f} s "
+             f"with sketch load; mode={stats['mode']}, "
+             f"batches={stats['batches']}, launches={counts}")
+
+
+def seek_vs_host(n: int, sk: str, fq_cpu: str, out_gpu: str, out_cpu: str,
+                 ncpu: int):
+    """The first ncpu reads through --device cpu: the same rows, distances
+    within 1e-5."""
+    rc, _ = run_cli(["seek", "-q", fq_cpu, "-i", sk, "-o", out_cpu,
+                     "--device", "cpu"])
+    check(rc == 0, f"cpu cli returned {rc}")
+    cpu = read_seek_rows(out_cpu, ncpu)
+    gpu = read_seek_rows(out_gpu, SEEK_READS)[:ncpu]
+    worst = 0.0
+    for g, c in zip(gpu, cpu):
+        (gn, gd), (cn, cd) = g.split("\t"), c.split("\t")
+        check(gn == cn and (gd == "NaN") == (cd == "NaN"),
+              f"seek rows differ: {g!r} on cuda, {c!r} on the host")
+        if gd != "NaN":
+            worst = max(worst, abs(float(gd) - float(cd)))
+    check(worst <= DIST_TOL, f"seek distance differs by {worst}")
+    phase(n, f"cuda vs cpu on {ncpu} reads: same rows, max |dist diff| "
+             f"{worst:g}, rows differing in bytes "
+             f"{sum(g != c for g, c in zip(gpu, cpu))}")
+
+
+def seek_throughput(n: int, sk: str, fq: str, card: str):
+    """seek reads/s (sketch loaded once): a warm-up, then 3 timed passes."""
+    import torch
+
+    from krepp_tpu_torch.index.artifact import load_sketch_reference
+    from krepp_tpu_torch.query.seek import run_seek
+
+    sketch = load_sketch_reference(sk)
+    rates = []
+    for rep in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as sink:
+            nr = run_seek(sketch, fq, sink, "smoke", device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rep:
+            rates.append(nr / dt)
+            phase(n, f"pass {rep}: {nr / dt:.1f} reads/s ({dt:.3f} s) "
+                     f"on {card}")
+    phase(n, f"seek: median {statistics.median(rates):.1f} reads/s, spread "
+             f"{max(rates) / min(rates):.3f}x (max/min of 3) on {card}")
+
+
+def sketch_world(n: int, root: str):
+    """One generated SEEK_GLEN-bp genome as FASTA, sketched through the CLI
+    at the sketch defaults; its reads as FASTQ. Returns (sketch, reads,
+    first CPU_READS reads)."""
+    import numpy as np
+
+    from krepp_tpu_torch import cli
+
+    genome = np.random.default_rng(SEEK_SEED).integers(
+        0, 4, SEEK_GLEN).astype(np.uint8)
+    fa = os.path.join(root, "target.fna")
+    with open(fa, "wb") as f:
+        f.write(b">target\n" + np.frombuffer(b"ACGT", np.uint8)[genome]
+                .tobytes() + b"\n")
+    sk = os.path.join(root, "target.sk")
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["sketch", "-i", fa, "-o", sk])
+    check(rc == 0, f"sketch returned {rc}")
+    kmers = re.search(r"included in the sketch: (\d+)", err.getvalue())
+    check(kmers is not None and int(kmers.group(1)) > 0,
+          "the sketch holds no k-mers")
+    phase(n, f"sketch of a {SEEK_GLEN}-bp genome (k=26 h=10 w=32 m=4): "
+             f"{kmers.group(1)} k-mers, {os.path.getsize(sk)} bytes, "
+             f"{time.time() - t0:.1f} s")
+    fq, fq_cpu = write_reads({"target": [genome]}, SEEK_SEED + 1, SEEK_READS,
+                             150, CPU_READS, root, "seek")
+    return sk, fq, fq_cpu
+
+
+def inspect_base(n: int, idx: str, nkmers: int):
+    """inspect through the CLI: the backbone tree, one block per resident
+    residue, and a k-mer-per-color histogram summing to the index size."""
+    from krepp_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["inspect", "-i", idx])
+    check(rc == 0, f"inspect returned {rc}")
+    lines = out.getvalue().splitlines()
+    check(lines[0].startswith("Backbone tree: (") and lines[0].endswith(";"),
+          f"bad first line {lines[0][:60]!r}")
+    blocks = [ln for ln in lines if ln.startswith("======= Partial index:")]
+    check(blocks == ["======= Partial index: 0 =======",
+                     "======= Partial index: 1 ======="],
+          f"partial blocks {blocks}")
+    check("k: 27" in lines and "h: 11" in lines and "m: 4" in lines,
+          "the parameters are missing from the block")
+    mers = sum(int(key) * int(cnt) for r, kind, key, cnt in
+               (ln.split("\t") for ln in lines if "\tMER_COUNT\t" in ln)
+               if r == "0")
+    check(mers == nkmers, f"MER_COUNT sums to {mers}, index holds {nkmers}")
+    phase(n, f"inspect: {len(lines)} lines, {len(blocks)} partial blocks, "
+             f"MER_COUNT sums to the {nkmers} k-mers")
 
 
 def main() -> int:
@@ -671,7 +846,42 @@ def main() -> int:
             profile_pass(15, throughput(15, "wide", widx, wfq, card,
                                         cmd="place"))
 
-    phase(16, f"total {time.time() - t_start:.1f} s")
+        with timed(16, "many world dist"):
+            nidx, ngen, nnk, ndt = make_world(MANY, root, "many")
+            nfq, nfq_cpu = write_reads(ngen, MANY["seed"] + 1, MANY_READS,
+                                       150, WIDE_CPU_READS, root, "many")
+            del ngen
+            phase(16, f"many world: {nnk} k-mers, 1000 leaves, built in "
+                      f"{ndt:.1f} s")
+            nout = os.path.join(root, "many_gpu.tsv")
+            dist_on_card(16, nidx, nfq, nout, MANY_READS, None, ("se", 32),
+                         launches, mode="event")
+            gpu_vs_cpu(16, nidx, nfq_cpu, nout,
+                       os.path.join(root, "many_cpu.tsv"), WIDE_CPU_READS)
+            profile_pass(16, throughput(16, "many", nidx, nfq, card))
+
+        with timed(17, "many place"):
+            npout = os.path.join(root, "many_gpu.jplace")
+            place_on_card(17, nidx, nfq, npout, MANY_READS, None, "lanes",
+                          launches, mode="event")
+            place_vs_host(17, nidx, nfq_cpu, npout, MANY_READS,
+                          os.path.join(root, "many_cpu.jplace"),
+                          WIDE_CPU_READS)
+            profile_pass(17, throughput(17, "many", nidx, nfq, card,
+                                        cmd="place"))
+
+        with timed(18, "seek"):
+            sk, sfq, sfq_cpu = sketch_world(18, root)
+            sout = os.path.join(root, "seek_gpu.tsv")
+            seek_on_card(18, sk, sfq, sout, launches)
+            seek_vs_host(18, sk, sfq_cpu, sout,
+                         os.path.join(root, "seek_cpu.tsv"), CPU_READS)
+            seek_throughput(18, sk, sfq, card)
+
+        with timed(19, "inspect"):
+            inspect_base(19, idx, nk)
+
+    phase(20, f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"krepp_tpu_torch/csrc/{name}.cu",

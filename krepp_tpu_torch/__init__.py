@@ -6,8 +6,10 @@ kernels for Hopper (sm_90a) in place of the Pallas TPU kernels. It never
 imports JAX: the framework-free host modules of `krepp_tpu` (params,
 reports, tree, index.colors, io.native, core.native_*, core.hll,
 core.stdrand, core.sdust) are reused, and the numpy code of the modules
-that would pull JAX in (index.build/index/artifact, io.fastx, testing) is
-carried here as JAX-free copies.
+that would pull JAX in (index.build/index/artifact, io.fastx, inspect,
+testing) is carried here as JAX-free copies. The C winnower and jplace
+emitter are built by the port's own loaders (core/native_extract.py,
+io/native_report.py).
 
 Conventions:
   * u32 words travel as int32 bit patterns (as the Pallas kernels already

@@ -14,9 +14,7 @@ There is no quiet fallback: a missing compiler or a failed build raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from typing import Iterable, Tuple
 
@@ -27,7 +25,7 @@ from krepp_tpu.core.native_extract import (_HLL_B, MAX_LDIFF_STACK,
                                            _declare, _self_test)
 from krepp_tpu.params import IndexParams
 
-from ..csrc.build import BUILD_DIR
+from ..csrc.build import BUILD_DIR, cc_library
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "extract.c")
@@ -37,29 +35,13 @@ _LIBS = {}
 _LOCK = threading.Lock()
 
 
-def library_path(build_dir: str = BUILD_DIR) -> str:
-    """Path of the built winnower in build_dir (built if missing)."""
-    with open(SRC, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(build_dir, f"libextract-{tag}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run(["cc", *CC_FLAGS, "-o", tmp, SRC],
-                          capture_output=True, text=True, timeout=120)
-    if proc.returncode != 0:
-        raise RuntimeError(f"cc failed on {SRC}:\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees a stub
-    return out
-
-
 def get_lib(build_dir: str = BUILD_DIR) -> ctypes.CDLL:
     """Build (at first use), load, bind and self-test the winnower."""
     with _LOCK:
         lib = _LIBS.get(build_dir)
         if lib is None:
-            lib = ctypes.CDLL(library_path(build_dir))
+            lib = ctypes.CDLL(cc_library(SRC, "extract", CC_FLAGS,
+                                          build_dir))
             _declare(lib)
             _self_test(lib)
             _LIBS[build_dir] = lib

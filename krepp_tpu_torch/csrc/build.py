@@ -8,7 +8,9 @@ edited source rebuilds and a stale library is never loaded. nvcc writes to
 a temporary name that is renamed into place, so a concurrent loader never
 opens a half-written library. nvcc's output (ptxas register and spill
 report included) is kept next to it as `<library>.log`. `build` starts one
-nvcc per missing library, all at once.
+nvcc per missing library, all at once. `cc_library` builds the repo's C
+host libraries (winnower, jplace emitter) into the same directory the
+same way.
 """
 
 from __future__ import annotations
@@ -86,6 +88,26 @@ def build(names: Sequence[str]) -> List[str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def cc_library(src: str, stem: str, flags: Sequence[str],
+               build_dir: str = BUILD_DIR, libs: Sequence[str] = ()) -> str:
+    """Path of the host library `cc` builds from the C source src into
+    build_dir as lib<stem>-<source hash>.so (built if missing, through a
+    temporary name renamed into place). A failed build raises."""
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    out = os.path.join(build_dir, f"lib{stem}-{tag}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run(["cc", *flags, "-o", tmp, src, *libs],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cc failed on {src}:\n{proc.stderr}")
+    os.replace(tmp, out)   # atomic: a concurrent loader never sees a stub
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

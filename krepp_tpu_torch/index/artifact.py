@@ -1,16 +1,18 @@
-"""Native index artifact: one meta.json partial (save and load).
+"""Native index artifact (one meta.json partial) and the reference's
+binary sketch file: save and load.
 
-JAX-free copy of the native-format half of krepp_tpu/index/artifact.py;
-files written by either package load in the other. Multi-partial
-directories and the reference binary format raise NotImplementedError
-until their ROADMAP slice ports them.
+JAX-free copy of the native-format half and the sketch functions of
+krepp_tpu/index/artifact.py; files written by either package load in the
+other. Multi-partial directories and the reference binary index format
+raise NotImplementedError until their ROADMAP item ports them.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional
+import struct
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -20,8 +22,8 @@ from krepp_tpu.params import IndexParams, LSHParams
 from krepp_tpu.tree.flat import FlatTree
 from krepp_tpu.tree.newick import Tree
 
-from .build import BuiltIndex
-from .index import DeviceIndex
+from .build import BuiltIndex, BuiltSketch
+from .index import DeviceIndex, DeviceSketch
 
 FORMAT_VERSION = 1
 
@@ -148,3 +150,48 @@ def load_index(index_dir: str) -> DeviceIndex:
     raise NotImplementedError(
         f"{index_dir} holds no native meta.json; reference-format index "
         "loading is not ported to krepp_tpu_torch yet (ROADMAP Queue 1)")
+
+
+def _write_config(f, p: IndexParams) -> None:
+    """BaseLSH::save_configuration (ref: src/krepp.cpp:18-29); ppos stored
+    descending (ref: src/lshf.cpp:146)."""
+    f.write(struct.pack("<BBB", p.k, p.w, p.h))
+    f.write(struct.pack("<II?", p.m, p.r, p.frac))
+    f.write(struct.pack("<I", p.nrows_local))
+    f.write(bytes(sorted(p.lsh.ppos, reverse=True)))
+    f.write(bytes(p.lsh.npos))
+
+
+def _read_config(f) -> Tuple[IndexParams, int]:
+    k, w, h = struct.unpack("<BBB", f.read(3))
+    m, r, frac = struct.unpack("<II?", f.read(9))
+    (nrows,) = struct.unpack("<I", f.read(4))
+    ppos = tuple(sorted(f.read(h)))
+    npos = tuple(sorted(f.read(k - h)))
+    lsh = LSHParams(k=k, h=h, m=m, ppos=ppos, npos=npos)
+    return IndexParams(lsh=lsh, w=w, r=r, frac=bool(frac)), nrows
+
+
+def save_sketch_reference(built: BuiltSketch, path: str) -> None:
+    """SFlatHT::save + config + rho (ref: src/krepp.cpp:121-129,
+    src/table.cpp:35-41)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", built.nkmers))
+        built.enc_v.astype("<u4").tofile(f)
+        f.write(struct.pack("<I", len(built.inc)))
+        built.inc.astype("<u8").tofile(f)
+        _write_config(f, built.params)
+        f.write(struct.pack("<d", built.rho))
+
+
+def load_sketch_reference(path: str) -> DeviceSketch:
+    """(ref: src/sketch.cpp:3-23)."""
+    with open(path, "rb") as f:
+        (nkmers,) = struct.unpack("<Q", f.read(8))
+        enc = np.fromfile(f, dtype="<u4", count=nkmers)
+        (nrows,) = struct.unpack("<I", f.read(4))
+        inc = np.fromfile(f, dtype="<u8", count=nrows).astype(np.int64)
+        params, _ = _read_config(f)
+        (rho,) = struct.unpack("<d", f.read(8))
+    return DeviceSketch.from_built(
+        BuiltSketch(params=params, enc_v=enc, inc=inc, rho=rho))

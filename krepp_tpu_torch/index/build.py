@@ -1,11 +1,13 @@
-"""Index build: genome winnowing -> sorted merge -> colors -> frozen CSR.
+"""Index build: genome winnowing -> sorted merge -> colors -> frozen CSR;
+and the single-genome sketch build.
 
 JAX-free copy of krepp_tpu/index/build.py (its module imports the device
 winnower and the sdust extractor, which import JAX). Winnowing goes only
 through the repo's native C winnower, loaded by the port's
 core/native_extract.py; the device winnower and sdust-masked extraction
-raise until ROADMAP slice 6 ports them. The merge, dedupe and coloring are the reference's numpy and
-C code, so a build here is field-for-field the JAX package's build.
+raise until ROADMAP slice 6 ports them. The merge, dedupe and coloring
+are the reference's numpy and C code, so a build here is field-for-field
+the JAX package's build.
 """
 
 from __future__ import annotations
@@ -42,6 +44,21 @@ class BuiltIndex:
     colors: ColorTable
     ftree: FlatTree
     rows_local: Optional[np.ndarray] = None
+
+    @property
+    def nkmers(self) -> int:
+        return len(self.enc_v)
+
+
+@dataclass
+class BuiltSketch:
+    """Color-less single-target sketch (ref: src/table.hpp:8-21, sketch
+    cmd); see krepp_tpu.index.build.BuiltSketch."""
+
+    params: IndexParams
+    enc_v: np.ndarray
+    inc: np.ndarray
+    rho: float
 
     @property
     def nkmers(self) -> int:
@@ -272,3 +289,28 @@ def _merge_and_color(rows: np.ndarray, res: np.ndarray, leaf: np.ndarray,
     counts = np.bincount(g_rows, minlength=nrows)
     inc = np.cumsum(counts).astype(np.int64)
     return enc_v, se_v, inc, None, colors
+
+
+def build_sketch(path: str, params: IndexParams,
+                 progress: bool = True) -> BuiltSketch:
+    """Single-genome sketch (ref: src/krepp.cpp:110-119): the genome's
+    distinct (row, residual) pairs as a CSR over local rows."""
+    from krepp_tpu.core.native_sort import sort_k
+
+    rows, res, rho = _extract_genome(read_genome_codes(path), params)
+    key = sort_k(rows.astype(np.uint64) << np.uint64(32)
+                 | res.astype(np.uint64))
+    if len(key):
+        keep = np.empty(len(key), bool)
+        keep[0] = True
+        np.not_equal(key[1:], key[:-1], out=keep[1:])
+        key = key[keep]
+    g_rows = (key >> np.uint64(32)).astype(np.int64)
+    enc_v = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    counts = np.bincount(g_rows, minlength=params.nrows_local)
+    inc = np.cumsum(counts).astype(np.int64)
+    if progress:
+        print(f"Total number of k-mers included in the sketch: {len(enc_v)}",
+              file=sys.stderr)
+        print(f"Subsampling rate (rho) is: {rho}", file=sys.stderr)
+    return BuiltSketch(params=params, enc_v=enc_v, inc=inc, rho=rho)

@@ -1,5 +1,6 @@
-"""DeviceIndex: the frozen LSH table + colors, unified for querying, and
-PlacementView, the index joined with a placement tree.
+"""DeviceIndex: the frozen LSH table + colors, unified for querying;
+PlacementView, the index joined with a placement tree; and DeviceSketch,
+a single-target sketch laid out the same way.
 
 JAX-free copy of the numpy layout code of krepp_tpu/index/index.py (that
 module imports krepp_tpu.index.build, which imports JAX). The unified CSR
@@ -25,7 +26,7 @@ from krepp_tpu.params import IndexParams, LSHParams
 from krepp_tpu.tree.flat import FlatTree, placement_weights
 from krepp_tpu.tree.newick import Tree, map_to_qtree
 
-from .build import BuiltIndex
+from .build import BuiltIndex, BuiltSketch
 
 # Above this many unified rows a dense CSR offset array only pays off when
 # the table content is comparably large (dense when >= 1/4 of the rows are
@@ -248,3 +249,57 @@ class PlacementView:
         cand[0] = False
         return PlacementView(index=index, qtree=qtree, qflat=qflat,
                              leaf_qse=leaf_qse, weights=W, candidate_ok=cand)
+
+
+@dataclass
+class DeviceSketch:
+    """Single-target sketch arrays (ref: src/sketch.{hpp,cpp}); fields as
+    krepp_tpu's."""
+
+    lsh: LSHParams
+    w: int
+    r: int
+    frac: bool
+    resident: np.ndarray
+    res_rank: np.ndarray
+    R: int
+    nrows_u: int
+    row_start: np.ndarray
+    enc_v: np.ndarray
+    max_bucket: int
+    rho: float
+    row_ids: Optional[np.ndarray] = None
+
+    @property
+    def nkmers(self) -> int:
+        return len(self.enc_v)
+
+    @staticmethod
+    def from_built(built: BuiltSketch) -> "DeviceSketch":
+        p = built.params
+        lsh = p.lsh
+        m = lsh.m
+        resident = np.zeros(m, bool)
+        resident[list(range(p.r + 1)) if p.frac else [p.r]] = True
+        res_rank = np.full(m, -1, np.int32)
+        R = int(resident.sum())
+        res_rank[np.flatnonzero(resident)] = np.arange(R, dtype=np.int32)
+        nrows_u = ((lsh.nrows_global + m - 1) // m) * R
+        g_rows = _local_rows_to_global(built.inc, p)
+        urow = (g_rows // m) * R + res_rank[g_rows % m]
+        order = _sort_by_row_enc(urow, built.enc_v)
+        row_ids, row_start, max_bucket = build_row_csr(urow[order], nrows_u)
+        # rho partial rescale (ref: src/sketch.cpp:25-32)
+        return DeviceSketch(lsh=lsh, w=p.w, r=p.r, frac=p.frac,
+                            resident=resident, res_rank=res_rank, R=R,
+                            nrows_u=nrows_u, row_start=row_start,
+                            enc_v=built.enc_v[order].astype(np.uint32),
+                            max_bucket=max_bucket, rho=built.rho * (R / m),
+                            row_ids=row_ids)
+
+    @staticmethod
+    def from_reference(sk) -> "DeviceSketch":
+        """Carry a krepp_tpu DeviceSketch across (numpy and plain Python
+        fields; nothing is recomputed)."""
+        return DeviceSketch(**{f.name: getattr(sk, f.name)
+                               for f in dataclasses.fields(DeviceSketch)})

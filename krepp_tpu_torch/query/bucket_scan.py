@@ -1,9 +1,9 @@
 """Bucket scans -> per-(read, leaf) first-match histograms (torch).
 
-Port of krepp_tpu/query/bucket_scan.py's dist half: the leaf-bit
-expander, the bounded scan loop (the hybrid heavy tail's ultra-deep
-buckets), the CSR-mode strand probe with its top-k heavy tail, and the
-exact full-depth scan (the last-resort fallback). Semantics: min Hamming
+Port of krepp_tpu/query/bucket_scan.py: the leaf-bit expander, the
+bounded scan loop (the hybrid heavy tail's ultra-deep buckets), the
+CSR-mode strand probe with its top-k heavy tail, the exact full-depth scan
+(the last-resort fallback), and seek's color-less minimum scan. Semantics: min Hamming
 distance per (read, position, leaf), counted once per position
 (ref: src/query.hpp:153-176).
 
@@ -157,3 +157,17 @@ def probe_strand_full(enc_se, mask_tab, expand, start, cnt, res, th: int,
                           0, maxcnt, Mm, gmin)
     hist = _first_x_hist(Mm, expand, torch.ones_like(res), th)
     return hist, gmin.amin(dim=1)
+
+
+def scan_buckets_min(enc_v, start, cnt, res, th: int, max_bucket: int):
+    """Color-less scan for seek: min Hamming distance per probe, HD_SENTINEL
+    above th (ref: src/seek.cpp:103-119). enc_v int32 [nk]; start, cnt,
+    res [...] (int64, int64, int32)."""
+    nk = max(enc_v.shape[0], 1)
+    gmin = torch.full(res.shape, HD_SENTINEL, dtype=torch.int32,
+                      device=res.device)
+    maxcnt = min(int(cnt.max()), max_bucket) if cnt.numel() else 0
+    for j in range(maxcnt):
+        hd = hdist_lr32(enc_v[torch.clamp(start + j, max=nk - 1)], res)
+        gmin = torch.where(j < cnt, torch.minimum(gmin, hd), gmin)
+    return torch.where(gmin <= th, gmin, HD_SENTINEL)

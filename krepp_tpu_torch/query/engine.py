@@ -12,14 +12,16 @@ the reference's, so the same batches escalate.
 
 Covered: every index with a leaf bitmask table (S <= 256 leaves, W <= 8
 mask words), 'embed' and 'se' bucket rows, any read length and any
-hdist_th; CSR mode when no bucket-row table fits DIRECT_MEM_CAP. An index
-without bitmasks (event mode) raises NotImplementedError naming the
-ROADMAP slice that brings it.
+hdist_th; CSR mode when no bucket-row table fits DIRECT_MEM_CAP; and
+event mode for indexes without bitmasks (more than 256 leaves): 'se'
+bucket rows probed through query/event_probe.py and joined into stage-2
+lanes with no [B, S] array, which runs no epilogue kernel.
 
 Host syncs per step (a step does not run fully asynchronously): the heavy
 tail's deepest-bucket count (when buckets exceed the heavy table; in CSR
-mode the deepest bucket of each strand and of its top-k tail), the Brent
-lane count, and Brent's convergence check every few iterations.
+mode the deepest bucket of each strand and of its top-k tail; in event
+mode the ultra-deep E-slot loop's bound), the Brent lane count, and
+Brent's convergence check every few iterations.
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ import torch
 from .. import resolve_device
 from ..core import codec
 from ..core.compact import compact_mask_indices, compact_mask_indices_strided
-from ..core.llh import (F, brent_on_mask, make_llh, make_llh_fast,
-                        make_llh_np)
-from ..index.index import DeviceIndex
+from ..core.llh import (F, brent_find_minima, brent_on_mask, make_llh,
+                        make_llh_fast, make_llh_np)
+from ..index.index import DeviceIndex, DeviceSketch
 from .bucket_scan import (_scan_loop, make_expander, probe_strand,
-                          probe_strand_full)
+                          probe_strand_full, scan_buckets_min)
+from .event_probe import event_probe_lanes, heavy_id
 from .kernels import (HD_SENTINEL, MAX_P, MAX_S, MAX_X, probe_hist_packed,
                       probe_hist_tiles)
 
@@ -54,8 +57,14 @@ DEEP_DIV = 256
 DIRECT_MEM_CAP = 2 << 30
 EMBED_W_CAP = 2
 HEAVY_TAB_CAP = 512 << 20
+# SeekEngine's direct table is full-width (no heavy tail behind it), so it
+# only pays off for shallow sketches; deeper ones scan the CSR.
+SEEK_DIRECT_CAP = 16
 # elements of the heavy tail's largest [lanes, S, X] one-hot temporary
 ONEHOT_ELEMS = 1 << 25
+# Test hook: event mode on an index that has bitmasks (the reference's
+# KREPP_EVENT_PROBE=1); tests monkeypatch it.
+FORCE_EVENT = False
 
 
 def hybrid_flavor(nrows: int, max_bucket: int, W: int) -> Optional[str]:
@@ -70,17 +79,22 @@ def hybrid_flavor(nrows: int, max_bucket: int, W: int) -> Optional[str]:
 
 
 def build_hybrid_slots(row_start: np.ndarray, enc_v: np.ndarray,
-                       se_v: np.ndarray, se_mask: np.ndarray,
-                       nrows_dense, max_bucket: int, W: int):
+                       se_v: np.ndarray, se_mask: Optional[np.ndarray],
+                       nrows_dense, max_bucket: int, W: int,
+                       flavor: Optional[str] = None):
     """The hybrid bucket-row table over one CSR (numpy, as the reference).
 
     nrows_dense: the dense row count, or None for a sparse table (nonempty
-    rows + one trailing zero row). Returns (slots u32 [nrows, width],
-    flavor) or (None, None) when no flavor fits DIRECT_MEM_CAP."""
+    rows + one trailing zero row). flavor forces a layout ('se' in event
+    mode, which has no se_mask). Returns (slots u32 [nrows, width],
+    flavor) or (None, None) when the layout does not fit DIRECT_MEM_CAP."""
     C0 = min(DENSE_SLOTS, max(1, max_bucket))
     ncontent = len(row_start) - 1
     nrows = ncontent if nrows_dense is not None else ncontent + 1
-    flavor = hybrid_flavor(nrows, max_bucket, W)
+    if flavor is None:
+        flavor = hybrid_flavor(nrows, max_bucket, W)
+    elif nrows * (1 + 2 * C0) * 4 > DIRECT_MEM_CAP:
+        flavor = None
     if flavor is None:
         return None, None
     width = 1 + C0 * (1 + W) if flavor == "embed" else 1 + 2 * C0
@@ -113,6 +127,16 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """Host array (u32 as int32 bit patterns) -> tensor on device; to the
+    card through pinned memory, non-blocking."""
+    t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                         if a.dtype == np.uint32 else np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 class _Pending:
     """Outputs of one dispatched step, on their way to the host.
 
@@ -143,6 +167,10 @@ class QueryEngine:
         row, the leaf bitmask embedded ('embed', W <= 2) or the color id
         stored ('se')), probed with ONE row gather + an epilogue kernel;
         deep buckets spill to a compacted heavy-bucket table or CSR rescan;
+      * 'event' -- indexes without bitmasks (or FORCE_EVENT): 'se' bucket
+        rows, matched events expanded through the per-color leaf-slot CSR
+        and deduped by sort (event_probe.py), stage 2 on lanes joined from
+        them;
       * 'csr' -- the flat entry array + offset CSR with a bounded scan
         loop and a top-k heavy tail, when no bucket-row table fits
         DIRECT_MEM_CAP."""
@@ -154,23 +182,15 @@ class QueryEngine:
         self.th = int(hdist_th)
         self.lsh = dindex.lsh
         self.S = dindex.nleafslots
-        if dindex.se_mask is None:
-            raise NotImplementedError(
-                f"{self.S} leaf slots need the event probe, which is not "
-                "ported to krepp_tpu_torch yet (ROADMAP Queue 1, slice 4)")
-        self.W = dindex.se_mask.shape[1]
+        self.W = (dindex.se_mask.shape[1] if dindex.se_mask is not None
+                  else (self.S + 31) // 32)
         dev = self.device
         self._rho_slot = torch.from_numpy(
             np.asarray(dindex.rho_slot, np.float64)).to(dev)
         self._expand = make_expander(self.S, self.W)
         self._llh = make_llh(self.lsh.k, self.lsh.h, self.th)
         self._llh_fast = make_llh_fast(self.lsh.k, self.lsh.h, self.th)
-        # residue -> (resident, rank) lookup tables (m entries)
-        self._res_resident = torch.from_numpy(
-            np.asarray(dindex.resident, bool)).to(dev)
-        self._res_rank = torch.from_numpy(
-            np.where(dindex.resident, dindex.res_rank, 0).astype(np.int64)
-        ).to(dev)
+        self._rows = _RowMap(dindex, dev)
         self._heavy_frac = self._measure_heavy_frac(dindex)
         self._heavy_cap_override = None    # test hook: tiny heavy caps
         self._lane_cap_override = None     # test hook: tiny lane caps
@@ -213,18 +233,40 @@ class QueryEngine:
     def _init_tables(self, di: DeviceIndex) -> None:
         """Choose the probe layout, build its tables on the host and place
         them on device: (slots, enc_se, row_start, row_ids, mask_tab,
-        heavy_tab) in hybrid mode, (enc_se, row_start, row_ids, mask_tab)
-        in CSR mode."""
+        heavy_tab) in hybrid mode, (slots, enc_se, row_start, row_ids,
+        leaf_off, leaf_slots, heavy_tab) in event mode, (enc_se, row_start,
+        row_ids, mask_tab) in CSR mode."""
         dev = self.device
         enc_se = np.stack([di.enc_v, di.se_v.astype(np.uint32)], axis=1)
         csr = (_i32(enc_se, dev),
                torch.from_numpy(di.row_start.astype(np.int64)).to(dev),
                None if di.row_ids is None
-               else torch.from_numpy(di.row_ids.astype(np.int64)).to(dev),
-               _i32(di.se_mask, dev))
+               else torch.from_numpy(di.row_ids.astype(np.int64)).to(dev))
+        nrows_dense = di.nrows_u if di.row_ids is None else None
+        self.C0 = min(DENSE_SLOTS, max(1, di.max_bucket))
+        if di.se_mask is None or FORCE_EVENT:
+            self.mode = "event"
+            self.hflavor = "se"
+            _check_leaf_ranges(di)
+            slots, _ = build_hybrid_slots(
+                di.row_start, di.enc_v, di.se_v, None, nrows_dense,
+                max(1, di.max_bucket), self.W, flavor="se")
+            if slots is None:
+                raise RuntimeError(
+                    "the event probe's bucket-row table exceeds "
+                    f"DIRECT_MEM_CAP ({DIRECT_MEM_CAP} bytes); the index "
+                    "needs the sharded engine (ROADMAP Queue 1, slice 7)")
+            heavy_tab = None
+            if di.max_bucket > self.C0:
+                heavy_tab = self._build_heavy_tab(di, slots)
+            self._tables = (_i32(slots, dev),) + csr + (
+                torch.from_numpy(di.leaf_csr_off.astype(np.int64)).to(dev),
+                torch.from_numpy(di.leaf_csr_slots.astype(np.int32)).to(dev),
+                None if heavy_tab is None else _i32(heavy_tab, dev))
+            return
+        csr = csr + (_i32(di.se_mask, dev),)
         slots, flavor = build_hybrid_slots(
-            di.row_start, di.enc_v, di.se_v, di.se_mask,
-            di.nrows_u if di.row_ids is None else None,
+            di.row_start, di.enc_v, di.se_v, di.se_mask, nrows_dense,
             max(1, di.max_bucket), self.W)
         if slots is None:
             self.mode = "csr"
@@ -233,7 +275,6 @@ class QueryEngine:
             return
         self.mode = "hybrid"
         self.hflavor = flavor
-        self.C0 = min(DENSE_SLOTS, max(1, di.max_bucket))
         heavy_tab = None
         if di.max_bucket > self.C0:
             heavy_tab = self._build_heavy_tab(di, slots)
@@ -243,8 +284,9 @@ class QueryEngine:
     def _build_heavy_tab(self, di: DeviceIndex, slots: np.ndarray):
         """Side table with one padded row per heavy bucket (depth > C0):
         word 0 = true count, then TP (enc, aux) entry pairs, aux the mask
-        word when W == 1, else the se id (the tail gathers the mask words
-        by it, as the reference's use_mask). The owning slots row's count
+        word when W == 1 in hybrid mode, else the se id (the hybrid tail
+        gathers the mask words by it, the event probe expands it; the
+        reference's use_mask and aux="se"). The owning slots row's count
         word is patched to min(cnt, 255) | (heavy_id + 1) << 8 (see the
         reference). Returns None (CSR tail) when the id doesn't fit 24 bits
         or the table would exceed HEAVY_TAB_CAP."""
@@ -274,7 +316,7 @@ class QueryEngine:
             valid = pos < ends
             pv = np.where(valid, pos, 0)
             htab[:, 1 + 2 * j] = np.where(valid, di.enc_v[pv], 0)
-            if self.W == 1:
+            if self.W == 1 and self.mode == "hybrid":
                 aux = di.se_mask[di.se_v[pv]][:, 0]
             else:
                 aux = di.se_v[pv].astype(np.uint32)
@@ -284,21 +326,6 @@ class QueryEngine:
         return htab
 
     # ------------------------------------------------------------- stage 1
-    def _residue_maps(self, rix64):
-        """rix (int64) -> (resident bool, rank int64) through the m-entry
-        lookup tables."""
-        rmod = rix64 % self.lsh.m
-        return self._res_resident[rmod], self._res_rank[rmod]
-
-    def _urow(self, rix, valid):
-        """Unified row (int64) + residency per probe. rix holds u32 values
-        below 2^30; % and // run widened to int64."""
-        r64 = rix.to(torch.int64)
-        resident, rank = self._residue_maps(r64)
-        resident = resident & valid
-        urow = (r64 // self.lsh.m) * self.di.R + rank
-        return torch.where(resident, urow, 0), resident
-
     def _route_rows(self, row_ids, urow, resident):
         """urow -> (sidx into the slots table, hrow into row_start, found).
 
@@ -380,14 +407,10 @@ class QueryEngine:
         nk = max(enc_se.shape[0], 1)
         start = None
         if heavy_tab is not None:
-            # one single-row gather per heavy lane: (count, first MB pairs).
-            # The id mask keeps ids >= 2^23 from sign-extending (the
-            # reference's arithmetic shift clips them; ROADMAP Queue 3).
-            nh = heavy_tab.shape[0]
+            # one single-row gather per heavy lane: (count, first MB pairs)
             MB = (heavy_tab.shape[1] - 1) // 2
-            hid = torch.clamp(
-                ((word0.reshape(Np)[safe_l] >> 8) & 0xFFFFFF) - 1, 0, nh - 1)
-            hrow_t = heavy_tab[hid.to(torch.int64)]      # [K, 1 + 2*MB]
+            hrow_t = heavy_tab[heavy_id(word0.reshape(Np)[safe_l],
+                                        heavy_tab.shape[0])]  # [K, 1+2*MB]
             hcnt = torch.where(live, hrow_t[:, 0], 0)
             penc = hrow_t[:, 1::2]
             hd = codec.hdist_lr32(penc, hres[:, None])
@@ -469,7 +492,7 @@ class QueryEngine:
         histogram (ref: src/query.hpp:153-176)."""
         slots_d, enc_se, row_start, row_ids, mask_tab, heavy_tab = tables
         rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
-        urow, resident = self._urow(rix2, valid[None])   # [2, B, P]
+        urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
         sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
         hist, minall, overflow = self._hybrid_core(
             slots_d, enc_se, row_start, mask_tab, sidx, hrow, resident,
@@ -486,7 +509,7 @@ class QueryEngine:
         rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
         outs = []
         for strand in range(2):
-            urow, resident = self._urow(rix2[strand], valid)
+            urow, resident = self._rows(rix2[strand], valid)
             start, cnt = _csr_bucket_slices(row_start, row_ids, urow,
                                             resident)
             outs.append(probe_strand(
@@ -500,7 +523,7 @@ class QueryEngine:
         and the hybrid overflow fallback. tables: the CSR tables."""
         enc_se, row_start, row_ids, mask_tab = tables
         rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
-        urow, resident = self._urow(rix2, valid[None])
+        urow, resident = self._rows(rix2, valid[None])
         start, cnt = _csr_bucket_slices(row_start, row_ids, urow, resident)
         B = codes.shape[0]
         P = urow.shape[2]
@@ -517,6 +540,11 @@ class QueryEngine:
     def _probe_impl(self, tables, codes, lengths, exact: bool = False,
                     tier: int = 0):
         """(hist_or, hist_rc, minall_or, minall_rc, onmers, overflow)."""
+        if self.mode == "event":
+            raise NotImplementedError(
+                "event mode probes in lane form only (_probe_and_lanes); "
+                "the dense event probe serves the sharded engine (ROADMAP "
+                "Queue 1, slice 7)")
         csr = tables if self.mode == "csr" else tables[1:5]
         if exact:
             return self._probe_csr_exact(csr, codes, lengths)
@@ -524,15 +552,118 @@ class QueryEngine:
             return self._probe_csr(csr, codes, lengths)
         return self._probe_hybrid(tables, codes, lengths, tier)
 
+    # ------------------------------------------------------- event mode
+    def _event_caps(self, B: int, P: int, tier: int):
+        """(E, KH, CAP_L): per-probe ultra-deep matches, heavy probes and
+        leaf events at a capacity tier, 4x per tier (the reference's
+        values: its docstring says 16x, its code shifts by 2 * tier)."""
+        Np = 2 * B * P
+        rf = self._res_frac()
+        E = min(8 << (2 * tier), max(self.di.max_bucket, 1))
+        KH = min(Np, max(4096, int(Np * rf) // 4) << (2 * tier))
+        CAP_L = max(1 << 16, int(Np * rf) // 4) << (2 * tier)
+        return E, KH, CAP_L
+
+    def _res_frac(self) -> float:
+        """Fraction of probe lanes whose LSH residue is resident."""
+        return float(np.count_nonzero(self.di.resident)) / max(self.lsh.m, 1)
+
+    def _resident_cap(self, Np: int, tier: int):
+        """Capacity of the resident-lane compaction (None: no compaction).
+
+        Resident lanes are ~Binomial(Np, res_frac): a 1.02x + 8k margin,
+        4x per tier, so a batch of correlated reads that overflows tier 0
+        recovers at a later tier (the reference keeps one cap at every
+        tier; ROADMAP Queue 3)."""
+        rf = self._res_frac()
+        if rf >= 0.95:
+            return None
+        KR = (int(Np * rf * 1.02) + 8192) << (2 * tier)
+        KR = (KR + 1023) & ~1023
+        return None if KR >= Np else KR
+
+    def _event_lane_join(self, nb_lane, leaf_lane, hist_lanes, K: int,
+                         B: int):
+        """(strand-read, leaf) event lanes -> stage-2 lane inputs (idx, lv,
+        h_or, h_rc, lane_over): lanes sorted by (read, leaf, strand), each
+        or/rc pair merged into one (read, leaf) group, groups compacted to
+        K slots in ascending b*S+s order -- the lane set and order the
+        dense extraction gives, with no [B, S] array."""
+        S = self.S
+        X = self.th + 1
+        dev = nb_lane.device
+        CAP = nb_lane.shape[0]
+        N = 2 * B
+        BS = B * S
+        K = min(K, CAP)
+        valid = nb_lane < N
+        strand = (nb_lane >= B).to(torch.int64)
+        b = nb_lane.long() - strand * B
+        big = BS << 1
+        key = torch.where(valid, ((b * S + leaf_lane.long()) << 1) | strand,
+                          big).to(torch.int32)
+        ks, perm = torch.sort(key, stable=True)
+        hist_s = hist_lanes[perm]
+        vs = ks < big
+        gkey = ks >> 1
+        strand_s = ks & 1
+        first = (gkey != torch.cat([gkey.new_full((1,), -1), gkey[:-1]])) & vs
+        gid = torch.clamp(torch.cumsum(first.to(torch.int32), 0) - 1, min=0)
+
+        def strand_sum(s):
+            w = ((strand_s == s) & vs).to(torch.int32)[:, None]
+            z = torch.zeros((CAP, X), dtype=torch.int32, device=dev)
+            return z.index_add_(0, gid, w * hist_s)[:K]
+
+        gkey_g = torch.full((CAP,), -1, dtype=torch.int32, device=dev)
+        gkey_g = gkey_g.scatter_reduce_(0, gid, torch.where(vs, gkey, -1),
+                                        "amax", include_self=False)
+        ngroups = first.sum(dtype=torch.int32)
+        lv = torch.arange(K, dtype=torch.int32, device=dev) < ngroups
+        idx = torch.where(lv, torch.clamp(gkey_g[:K], min=0),
+                          BS).to(torch.int32)
+        h_or = torch.where(lv[:, None], strand_sum(0), 0)
+        h_rc = torch.where(lv[:, None], strand_sum(1), 0)
+        return idx, lv, h_or, h_rc, ngroups > K
+
+    def _event_lanes(self, tables, codes, lengths, leaf_ok,
+                     lane_cap: Optional[int], exact: bool, tier: int):
+        """Event-mode probe + lane join + stage 2 (no [B, S] array);
+        "exact" runs at tier >= 2, since capacities escalate on the host
+        (fetch_prefetched)."""
+        (slots_d, enc_se, row_start, row_ids, leaf_off, leaf_slots,
+         heavy_tab) = tables
+        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+        urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
+        sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
+        B, P = codes.shape[0], urow.shape[2]
+        etier = max(tier, 2) if exact else tier
+        E, KH, CAP_L = self._event_caps(B, P, etier)
+        nb_lane, leaf_lane, hist_lanes, minall, ov = event_probe_lanes(
+            slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
+            resident, res2, self.th, self.C0, self.S, self.di.max_bucket, E,
+            KH, CAP_L, heavy_tab=heavy_tab,
+            KR=self._resident_cap(2 * B * P, etier))
+        minall = minall.reshape(2, B)
+        BS = B * self.S
+        K = BS if lane_cap is None else min(BS, lane_cap)
+        idx, lv, h_or, h_rc, lane_over = self._event_lane_join(
+            nb_lane, leaf_lane, hist_lanes, K, B)
+        L = self._stage2_core(idx, lv, h_or, h_rc, minall[0], minall[1],
+                              onmers, leaf_ok, lane_over)
+        return L, onmers, ov
+
     # ------------------------------------------------------------- stage 2
     def _probe_and_lanes(self, tables, codes, lengths, leaf_ok,
                          lane_cap: Optional[int], exact: bool, tier: int):
         """Probe + lane extraction -> (L dict, onmers, probe_overflow).
 
-        The dense-histogram branch of the reference's: the probe, then
-        stage 2 on K = min(B*S, lane_cap) lanes (lane_cap None: all B*S).
-        Its event branch (indexes without bitmasks) is refused when the
-        engine is built (slice 4)."""
+        Event mode stays in lane form end to end (_event_lanes); the other
+        modes probe dense histograms and run stage 2 on K = min(B*S,
+        lane_cap) lanes extracted from them (lane_cap None: all B*S)."""
+        if self.mode == "event":
+            return self._event_lanes(tables, codes, lengths, leaf_ok,
+                                     lane_cap, exact, tier)
         probe_out = self._probe_impl(tables, codes, lengths, exact, tier)
         BS = codes.shape[0] * self.S
         K = BS if lane_cap is None else min(BS, lane_cap)
@@ -753,7 +884,10 @@ class QueryEngine:
     def suggested_batch_reads(self, place: bool = False) -> int:
         """Reads per device batch keeping the dense per-(read, leaf) stage-2
         state (and the stage-3 per-(read, tree-node) state for place) under
-        ~1 GB."""
+        ~1 GB. Event-mode dist never materialises [B, S] beyond a present
+        bitmap, so its batches are bounded by lane capacities instead."""
+        if self.mode == "event" and not place:
+            return min(32768, max(256, (1 << 30) // (32 * max(self.S, 1))))
         per_read = (256 if place else 128) * max(self.S, 1)
         return max(256, (1 << 30) // per_read)
 
@@ -766,17 +900,10 @@ class QueryEngine:
             leaf_ok = np.ones(self.S, bool)
         packed, vbits = codec.pack_codes_host(np.asarray(codes),
                                               np.asarray(lengths))
-
-        def up(a):
-            t = torch.from_numpy(np.ascontiguousarray(a).view(
-                np.int32) if a.dtype == np.uint32 else np.ascontiguousarray(a))
-            if dev.type == "cuda":
-                return t.pin_memory().to(dev, non_blocking=True)
-            return t
-
-        return (up(packed), None if vbits is None else up(vbits),
-                up(np.asarray(lengths, np.int32)),
-                up(np.asarray(leaf_ok, bool)))
+        return (_upload(packed, dev),
+                None if vbits is None else _upload(vbits, dev),
+                _upload(np.asarray(lengths, np.int32), dev),
+                _upload(np.asarray(leaf_ok, bool), dev))
 
     def run_step(self, step, codes, lengths, leaf_ok=None) -> _Pending:
         """Upload a batch and enqueue `step(tables, packed, vbits, lengths,
@@ -825,7 +952,8 @@ class QueryEngine:
                          out_mode: str = "full") -> "LeafResults":
         """Build LeafResults from a fetched (host numpy) output tuple,
         re-running overflowed batches: probe overflow -> tiers 1-3, then the
-        exact CSR rescan; lane overflow -> tiers, then uncapped lanes;
+        exact CSR rescan (event mode: RuntimeError, its "exact" is only
+        tier 2); lane overflow -> tiers, then uncapped lanes;
         compact-fetch overflow -> the full output set."""
         ov_flags = int(np.max(fetched[-1]))
         over = ov_flags != 0
@@ -844,7 +972,12 @@ class QueryEngine:
                         break
                 else:
                     self.escalations += 1
+                    exhausted = RuntimeError(
+                        "event-probe capacity tiers exhausted; the batch is "
+                        "pathologically match-dense -- reduce the batch size")
                     if ov_flags & 1:
+                        if self.mode == "event":
+                            raise exhausted
                         # probe capacity exceeded even at a 64x cap
                         fetched = self.run_exact(codes, lengths,
                                                  leaf_ok).get()
@@ -853,6 +986,8 @@ class QueryEngine:
                         # uncapped stage 2 is exact
                         fetched = self.run_tier(codes, lengths, leaf_ok, 3,
                                                 lane_exact=True).get()
+                        if int(np.max(fetched[-1])) & 1:
+                            raise exhausted
             else:
                 self.escalations += 1
                 fetched = self.run_leaf_stage_async(codes, lengths,
@@ -905,6 +1040,40 @@ class QueryEngine:
                                    lr.uc_closest[:, None],
                                    lr.rho_closest[:, None])
                       - lr.v_closest[:, None])
+
+
+class _RowMap:
+    """LSH row -> unified row: urow = (rix // m) * R + rank(rix % m),
+    through m-entry (resident, rank) lookup tables on the device."""
+
+    def __init__(self, layout, device):
+        self.m = layout.lsh.m
+        self.R = layout.R
+        self.resident = torch.from_numpy(
+            np.asarray(layout.resident, bool)).to(device)
+        self.rank = torch.from_numpy(np.where(
+            layout.resident, layout.res_rank, 0).astype(np.int64)).to(device)
+
+    def __call__(self, rix, valid):
+        """(urow int64, 0 where not resident; resident bool). rix holds u32
+        values below 2^30; % and // run widened to int64."""
+        r64 = rix.to(torch.int64)
+        rmod = r64 % self.m
+        resident = self.resident[rmod] & valid
+        urow = (r64 // self.m) * self.R + self.rank[rmod]
+        return torch.where(resident, urow, 0), resident
+
+
+def _check_leaf_ranges(di: DeviceIndex) -> None:
+    """Every color an entry carries must expand to at least one leaf slot:
+    the event probe would otherwise drop its matches, hd included, from
+    minall (the reference's silent loss; ROADMAP Queue 3)."""
+    cards = np.diff(di.leaf_csr_off)
+    empty = np.unique(di.se_v[cards[di.se_v] == 0])
+    if len(empty):
+        raise ValueError(
+            f"{len(empty)} color(s) with an empty leaf-slot range (first: "
+            f"{int(empty[0])}); the index's color table is inconsistent")
 
 
 def _f64_segment_min(dm, keep, seg, NB: int, lb):
@@ -971,3 +1140,106 @@ class LeafResults:
     uc: Optional[np.ndarray] = None      # f64 [B, S]
     rho: Optional[np.ndarray] = None     # f64 [B, S]
     ratio: Optional[np.ndarray] = None   # f64 [B, S] chisq vs closest
+
+
+class SeekEngine:
+    """Single-target sketch search (ref: src/seek.cpp) on one device.
+
+    Probe layouts, as the reference's: 'direct' -- a [nrows_u, 1 + C0]
+    bucket-row table (count word, then the C0 = max_bucket residuals) when
+    the sketch has dense rows and max_bucket <= SEEK_DIRECT_CAP; else
+    'csr' -- the entry array + offsets, scanned to the deepest bucket (one
+    host sync)."""
+
+    def __init__(self, sketch: DeviceSketch, hdist_th: int = 4,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.sk = sketch
+        self.th = int(hdist_th)
+        self.lsh = sketch.lsh
+        self._rows = _RowMap(sketch, self.device)
+        self._llh_fast = make_llh_fast(self.lsh.k, self.lsh.h, self.th)
+        slots = self._build_direct_table(sketch)
+        if slots is not None:
+            self.mode = "direct"
+            self._tables = (_i32(slots, self.device),)
+        else:
+            self.mode = "csr"
+            self._tables = (
+                _i32(sketch.enc_v, self.device),
+                torch.from_numpy(sketch.row_start.astype(np.int64)).to(
+                    self.device),
+                None if sketch.row_ids is None else torch.from_numpy(
+                    sketch.row_ids.astype(np.int64)).to(self.device))
+
+    @staticmethod
+    def _build_direct_table(sk: DeviceSketch):
+        if sk.row_ids is not None or sk.max_bucket > SEEK_DIRECT_CAP:
+            return None
+        C0 = max(1, sk.max_bucket)
+        if sk.nrows_u * (1 + C0) * 4 > DIRECT_MEM_CAP:
+            return None
+        counts = np.diff(sk.row_start)
+        urow_of = np.repeat(np.arange(sk.nrows_u, dtype=np.int64), counts)
+        j = (np.arange(len(sk.enc_v), dtype=np.int64)
+             - np.repeat(sk.row_start[:-1], counts))
+        slots = np.zeros((sk.nrows_u, 1 + C0), np.uint32)
+        slots[:, 0] = counts.astype(np.uint32)
+        slots[urow_of, 1 + j] = sk.enc_v
+        return slots
+
+    def _strand_min(self, rix, res, valid):
+        """Per-probe minimum Hamming distance, HD_SENTINEL above th."""
+        urow, resident = self._rows(rix, valid)
+        if self.mode == "direct":
+            (slots,) = self._tables
+            ent = slots[urow]                            # [B, P, 1 + C0]
+            hd = codec.hdist_lr32(ent[..., 1:], res[..., None])
+            j = torch.arange(hd.shape[-1], dtype=torch.int32,
+                             device=hd.device)
+            match = (resident[..., None] & (j < ent[..., :1])
+                     & (hd <= self.th))
+            gmin = torch.where(match, hd, HD_SENTINEL).amin(dim=-1)
+            return torch.where(gmin <= self.th, gmin, HD_SENTINEL)
+        enc_v, row_start, row_ids = self._tables
+        start, cnt = _csr_bucket_slices(row_start, row_ids, urow, resident)
+        return scan_buckets_min(enc_v, start, cnt, res, self.th,
+                                self.sk.max_bucket)
+
+    def _run_impl(self, packed, vbits, lengths):
+        """(has [B] bool, d [B] f64): the better strand's ML distance."""
+        codes = codec.unpack_codes(packed, lengths, packed.shape[1] * 16,
+                                   vbits)
+        dev = codes.device
+        k = self.lsh.k
+        B, L = codes.shape
+        rix_or, rix_rc, res_or, res_rc, valid_w = codec.strand_hashes(
+            codes, self.lsh)
+        t_idx = torch.arange(L - k + 1, dtype=torch.int32, device=dev)
+        valid = valid_w & (t_idx[None, :] <= lengths[:, None] - k)
+        onmers = valid.sum(dim=1).to(F)
+        xs = torch.arange(self.th + 1, dtype=torch.int32, device=dev)
+        rho = torch.full((B,), self.sk.rho, dtype=F, device=dev)
+        outs = []
+        for rix, res in ((rix_or, res_or), (rix_rc, res_rc)):
+            gmin = self._strand_min(rix, res, valid)
+            hist = (gmin[..., None] == xs).sum(dim=1)    # [B, th+1]
+            matchc = hist.sum(dim=-1).to(F)
+            bx = (hist * xs).sum(dim=-1).to(F)
+            d, _ = brent_find_minima(
+                lambda dd, a=matchc, b=bx, uc=onmers - matchc:
+                self._llh_fast(dd, a, b, uc, rho), (B,), dev)
+            outs.append((matchc, d))
+        (mc_or, d_or), (mc_rc, d_rc) = outs
+        return (mc_or + mc_rc) > 0, torch.where(d_or < d_rc, d_or, d_rc)
+
+    def run(self, codes: np.ndarray, lengths: np.ndarray):
+        """One batch -> (has, d) as host numpy arrays."""
+        dev = self.device
+        packed, vbits = codec.pack_codes_host(np.asarray(codes),
+                                              np.asarray(lengths))
+        has, d = self._run_impl(
+            _upload(packed, dev), None if vbits is None
+            else _upload(vbits, dev), _upload(np.asarray(lengths, np.int32),
+                                              dev))
+        return has.cpu().numpy(), d.cpu().numpy()

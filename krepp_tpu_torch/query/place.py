@@ -17,7 +17,8 @@ Everything runs in f64: the reference's f32 MXU halves (`_w_einsum`) and
 f32 support counts were TPU workarounds, and no contraction here may drop
 to TF32 on the card. The host half (chi-square of the compacted candidates,
 LWR normalisation, row emission) is the reference's, with the bulk jplace
-emitter of csrc/report.c guarded against fields it cannot hold.
+emitter of csrc/report.c (built by the port's own loader,
+io/native_report.py) guarded against fields it cannot hold.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from typing import List, Optional, TextIO
 import numpy as np
 import torch
 
-from krepp_tpu.io import native_report
 from krepp_tpu.reports import (begin_jplace, end_jplace, fmt5, fmt5_array,
                                place_header)
 
@@ -38,6 +38,7 @@ from ..core import codec
 from ..core.compact import compact_mask_indices
 from ..core.llh import F, brent_on_mask, make_llh_np
 from ..index.index import DeviceIndex, PlacementView
+from ..io import native_report
 from ..io.fastx import QueryBatcher
 from .dist import IN_FLIGHT, _bucket_len
 from .engine import D_MAX, LeafResults, QueryEngine
@@ -614,13 +615,11 @@ def _report_batch(lr: LeafResults, n_pres: np.ndarray, names: List[str],
             kind[active & ~single] = 2
         else:
             kind[active & ~single & (ends > starts)] = 2
-        res = native_report.jplace_emit(
+        frag, emitted = native_report.jplace_emit(
             names, kind, s_of, starts, ends, s_q, s_d, s_v, cq, cd, cv, cw,
             qflat.blen, cfg.multi, has_previous)
-        if res is not None:
-            frag, emitted = res
-            out.write(frag)
-            return has_previous or emitted > 0
+        out.write(frag)
+        return has_previous or emitted > 0
 
     srows = _jplace_rows_bulk(qflat, s_q, s_d, s_v, s_w)
     crows = _jplace_rows_bulk(qflat, cq, cd, cv, cw)

@@ -159,6 +159,6 @@ def test_cli_dist_on_cpu_prints_the_reference_framing(world):
 
 def test_cli_unported_subcommand_exits_with_a_message(world):
     _, _, _, d = world
-    out = _cli(d, "sketch", "-i", "q.fq", "-o", "q.sk")
+    out = _cli(d, "index", "-i", "map.tsv", "-o", "idx2")
     assert out.returncode == 2
-    assert "not ported" in out.stderr and "slice 5" in out.stderr
+    assert "not ported" in out.stderr and "slice 6" in out.stderr

@@ -181,13 +181,20 @@ def test_fetch_with_overflow_escalates_like_reference():
 
 
 def test_unported_layouts_raise():
-    """Only the event probe (an index without bitmasks) is unported;
-    hdist_th = 6 runs, through the tiles epilogue, as the reference."""
-    di, _, _ = _world("dense")
-    tdi = DeviceIndex.from_reference(di)
-    tdi.se_mask = None                    # a many-genome (event) index
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        engine.QueryEngine(tdi, device="cpu")
+    """An index without bitmasks (a many-genome index) runs in event mode
+    and matches the reference's leaf stage; hdist_th = 6 runs, through the
+    tiles epilogue, as the reference."""
+    import dataclasses
+
+    di, codes, lengths = _world("dense")
+    jdi = dataclasses.replace(di, se_mask=None)
+    je = jengine.QueryEngine(jdi, hdist_th=4)
+    te = engine.QueryEngine(DeviceIndex.from_reference(jdi), device="cpu")
+    assert te.mode == je.mode == "event"
+    want = jax.device_get(tuple(je.run_leaf_stage_async(codes, lengths)))
+    got = te.run_leaf_stage_async(codes, lengths).get()
+    _assert_tuple_equal(want, got)
+    assert got[0].any() and int(got[-1]) == 0
     je, te, codes, lengths = _engines("dense", th=6)
     assert not te._packed_epilogue_ok(codes.shape[1] - te.lsh.k + 1)
     _assert_tuple_equal(_jax_probe(je, codes, lengths),
