@@ -7,12 +7,25 @@ Drives the port's paths, `dist` and `place` through its CLI on generated
 worlds and the probe microbenchmark, and checks them:
 
   1. device: CUDA must be available; prints the card and its power limit;
+     `krepp_tpu` and `jax` are blocked from import for the whole run, and
+     the run fails at its end if either got into sys.modules;
   2. build: compiles the CUDA kernels from the checkout, one nvcc per
-     source, all started together;
+     source, all started together (the five C host libraries build at
+     first use in the phases that need them);
   3. kernels vs plain: probe_hist_packed, probe_hist_tiles, hdist_chunk
      and dma_gather against their plain torch versions on the card,
-     bit-equal, at the main path's shapes and edge shapes, with median
-     times from CUDA events;
+     bit-equal, at the main path's shapes and edge shapes (row spans that
+     are not 16-byte aligned, N = 1, every leaf set, leaf S - 1 alone),
+     with median times from CUDA events beside the bound: the least bytes
+     the function must move over the card's 3.35 TB/s; for dma_gather
+     `tab[idx]` is the one PyTorch call for the same function; the tiles
+     kernel is also timed at its main shape with every position dark,
+     where it only moves those bytes;
+  3b. (runs after 5 and after 11) each epilogue kernel again on a batch
+     of the main path: the arguments of the first probe_hist_packed launch
+     of the base world's dist run and of the first probe_hist_tiles launch
+     of the wide world's, kept by the wrappers' `keep_next` hook; bit-equal
+     to the plain version, kernel time, bound and share;
   4. base world: bench.py's "base" configuration (24 genomes x 500 kbp,
      k=27 h=11 w=35 m=4); builds the index, saves it, writes 65,536 reads
      of 150 bp as FASTQ;
@@ -64,13 +77,16 @@ worlds and the probe microbenchmark, and checks them:
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
 before the last is the kernels JSON (launches: counted over the CLI runs on
 cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17 and 18, and for dma_gather
-over the microbenchmark of phase 12); the last line is {"ok": true,
-"device": {...}}. Without a card it exits 1 and prints no result.
+over the microbenchmark of phase 12; ms, plain_ms, bound_ms and library_ms
+at the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b);
+the last line is {"ok": true, "device": {...}}. Without a card it exits 1
+and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib.abc
 import io
 import json
 import math
@@ -110,6 +126,9 @@ SEEK_ROW_RE = re.compile(r"[^\t]+\t(\d+\.\d{5}|NaN)")
 KERNELS = ("probe_hist_packed", "probe_hist_tiles", "hdist_chunk",
            "dma_gather")
 EPILOGUES = {"probe_hist_packed", "probe_hist_tiles"}
+COPY_ONLY = "main shape, every position dark (copy only)"
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+BLOCKED = ("jax", "jaxlib", "krepp_tpu")
 REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
     "probe_hist_packed": "krepp_tpu/query/pallas_kernels.py:210",
     "probe_hist_tiles": "krepp_tpu/query/pallas_kernels.py:93",
@@ -127,12 +146,26 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def phase(n: int, msg: str) -> None:
+class BlockReference(importlib.abc.MetaPathFinder):
+    """Refuses to import JAX or the JAX package: the port stands alone."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked: the port imports nothing "
+                              "of it")
+        return None
+
+
+def reference_modules():
+    return sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+
+
+def phase(n, msg: str) -> None:
     print(f"[{n}] {msg}", flush=True)
 
 
 @contextlib.contextmanager
-def timed(n: int, name: str):
+def timed(n, name: str):
     t0 = time.time()
     yield
     phase(n, f"{name}: {time.time() - t0:.1f} s")
@@ -145,7 +178,12 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def cuda_median_ms(fn, reps: int = 10, warmup: int = 3,
+                   launches: int = 10) -> float:
+    """Median over reps of the time of one call, each taken as a run of
+    `launches` calls between two CUDA events over their count: the card
+    stays busy while the host prepares the next call, so a wrapper's host
+    time is not counted as the kernel's."""
     import torch
 
     for _ in range(warmup):
@@ -155,17 +193,25 @@ def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def _compare(label: str, got, want, main: bool, kernel, ref, args,
-             dark: bool = False):
-    """Bit-equality of a kernel's outputs with its plain version's; times
-    both at the main shape."""
+             dark: bool = False, library=None, moved=None, tag=3):
+    """Bit-equality of a kernel's outputs with its plain version's. At the
+    main shape also: the kernel's and the plain version's time, the bound
+    (`moved` bytes, by default every tensor argument read once and every
+    output written once, over the device memory rate) and, where `library`
+    is given, the time of that one PyTorch call for the same function."""
     import torch
 
     torch.cuda.synchronize()
@@ -177,13 +223,23 @@ def _compare(label: str, got, want, main: bool, kernel, ref, args,
           f"no matches planted at {label}")
     line = f"{kernel.__name__} {label}: bit-equal"
     if not main:
-        phase(3, line)
+        phase(tag, line)
         return None
+    if moved is None:
+        moved = nbytes(*(a for a in args if isinstance(a, torch.Tensor)),
+                       *want)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
     ms = cuda_median_ms(lambda: kernel(*args))
-    plain_ms = cuda_median_ms(lambda: ref(*args), reps=3, warmup=1)
-    phase(3, line + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     "(median)")
-    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+    plain_ms = cuda_median_ms(lambda: ref(*args), reps=3, warmup=1,
+                              launches=1)
+    library_ms = None if library is None else cuda_median_ms(library)
+    phase(tag, line + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(median); bound {bound_ms:.4f} ms ({moved} bytes at 3.35 TB/s), "
+          f"{100 * bound_ms / ms:.1f}% of it reached"
+          + ("" if library is None else
+             f"; one PyTorch call {library_ms:.4f} ms"))
+    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
 
 def kernels_vs_plain():
@@ -209,9 +265,17 @@ def kernels_vs_plain():
         ("C0=1", 1000, 166, 1, 24, 4, False),
         ("X=6", 1000, 166, 2, 24, 5, False),
         ("dark", 1000, 166, 2, 24, 4, True),
+        # row spans that start off a 16-byte line, one row, few rows
+        ("P=1", 1000, 1, 2, 24, 4, False),
+        ("P=122", 1000, 122, 2, 24, 4, False),
+        ("N=1", 1, 166, 2, 24, 4, False),
+        ("N=3169 S=1 X=1", 3169, 33, 2, 1, 0, False),
+        ("every leaf", 1000, 166, 2, 32, 4, False, "dense"),
+        ("leaf S-1 alone", 1000, 166, 2, 24, 4, False, "last"),
     ]
-    for i, (label, N, P, C0, S, th, dark) in enumerate(packed):
-        args = dev(epilogue_inputs(rng, N, P, C0, S, th, dark)) + (th, C0, S)
+    for i, (label, N, P, C0, S, th, dark, *sets) in enumerate(packed):
+        args = dev(epilogue_inputs(rng, N, P, C0, S, th, dark, *sets)) + (
+            th, C0, S)
         r = _compare(label, kernels.probe_hist_packed(*args),
                      kernels.probe_hist_packed_ref(*args), i == 0,
                      kernels.probe_hist_packed,
@@ -231,15 +295,36 @@ def kernels_vs_plain():
         ("S=33", 2000, 164, 2, 2, 33, 4, "se", False),
         ("C0=1", 2000, 164, 1, 3, 70, 4, "se", False),
         ("dark", 2000, 164, 2, 8, 256, 4, "se", True),
+        # every position dark at the main shape: nothing to count, so the
+        # time is that of moving the bytes of the bound
+        (COPY_ONLY, 32768, 164, 2, 8, 256, 4, "se", True),
+        # row spans that start off a 16-byte line, one row, few rows
+        ("P=1 S=255", 2000, 1, 2, 8, 255, 4, "se", False),
+        ("P=166", 2000, 166, 2, 8, 256, 4, "se", False),
+        ("P=255 embed", 500, 255, 2, 8, 256, 4, "embed", False),
+        ("N=1", 1, 164, 2, 8, 256, 4, "se", False),
+        ("N=3169 P=1000", 3169, 1000, 1, 1, 24, 4, "se", False),
+        ("X=21 (th 20)", 500, 164, 2, 2, 40, 20, "embed", False),
+        ("every leaf", 2000, 164, 2, 8, 256, 4, "se", False, "dense"),
+        ("every leaf embed S=255", 500, 166, 2, 8, 255, 4, "embed", False,
+         "dense"),
+        ("leaf S-1 alone", 2000, 164, 2, 8, 256, 4, "se", False, "last"),
+        ("leaf S-1 alone S=33", 2000, 122, 2, 2, 33, 4, "embed", False,
+         "last"),
     ]
-    for i, (label, N, P, C0, W, S, th, flavor, dark) in enumerate(tiles):
-        args = dev(tiles_inputs(rng, N, P, C0, W, S, th, flavor, dark)) + (
-            th, C0, W, S)
+    for i, (label, N, P, C0, W, S, th, flavor, dark,
+            *sets) in enumerate(tiles):
+        args = dev(tiles_inputs(rng, N, P, C0, W, S, th, flavor, dark, 97,
+                                *sets)) + (th, C0, W, S)
         r = _compare(label, kernels.probe_hist_tiles(*args),
-                     kernels.probe_hist_tiles_ref(*args), i == 0,
+                     kernels.probe_hist_tiles_ref(*args),
+                     i == 0 or label == COPY_ONLY,
                      kernels.probe_hist_tiles, kernels.probe_hist_tiles_ref,
                      args, dark)
-        result.setdefault("probe_hist_tiles", r)
+        if label == COPY_ONLY:
+            result["probe_hist_tiles"]["copy_only_ms"] = r["ms"]
+        else:
+            result.setdefault("probe_hist_tiles", r)
     hdist = [("main N=1000003 C=16", 1000003, 16, 4), ("N=1537 C=4", 1537, 4, 4),
              ("C=1 th=6", 4099, 1, 6)]
     for i, (label, N, C, th) in enumerate(hdist):
@@ -270,10 +355,42 @@ def kernels_vs_plain():
         r = _compare(label, (kernels.dma_gather(tab, idx, rows),),
                      (kernels.dma_gather_ref(tab, idx, rows),), i == 0,
                      kernels.dma_gather, kernels.dma_gather_ref,
-                     (tab, idx, rows), dark=True)     # no match counts
+                     (tab, idx, rows), dark=True,     # no match counts
+                     library=lambda: tab[idx],
+                     # the rows the indices name, not the whole table
+                     moved=n * 4 + 2 * n * width * 4)
         result.setdefault("dma_gather", r)
         del tab, idx
     return result
+
+
+def kept_batch(name: str, world: str, kstats: dict):
+    """Phase 3b: the epilogue kernel `name` on the arguments its wrapper
+    kept from the first launch of the `world` world's dist run: bit-equal
+    to the plain version; time, bound and share as in phase 3."""
+    import torch
+
+    from krepp_tpu_torch.query import kernels
+
+    kernel = getattr(kernels, name)
+    ref = getattr(kernels, name + "_ref")
+    args = kernel.kept
+    check(args is not None and not kernel.keep_next,
+          f"{name} kept no launch of the {world} world")
+    kernel.kept = None
+    want = ref(*args)
+    N, P, width = args[2].shape
+    hits = float(want[0].sum()) / (N * P)
+    r = _compare(f"batch of the {world} world N={N} P={P} width={width} "
+                 f"S={want[0].shape[1]} X={want[0].shape[2]}, "
+                 f"{float(args[1].float().mean()):.3f} of positions light, "
+                 f"{hits:.3f} leaf hits per position", kernel(*args), want,
+                 True, kernel, ref, args, tag="3b")
+    kstats[name].update(batch_ms=r["ms"], batch_plain_ms=r["plain_ms"],
+                        batch_bound_ms=r["bound_ms"],
+                        batch_max_abs_err=r["max_abs_err"])
+    del args, want
+    torch.cuda.empty_cache()
 
 
 def make_world(cfg: dict, root: str, tag: str):
@@ -722,6 +839,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA card", file=sys.stderr)
         return 1
+    sys.meta_path.insert(0, BlockReference())
     try:
         import krepp_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -734,7 +852,10 @@ def main() -> int:
     print(card)
     phase(1, f"device: {torch.cuda.get_device_name(0)} x "
              f"{torch.cuda.device_count()}; torch {torch.__version__}, "
-             f"CUDA {torch.version.cuda}")
+             f"CUDA {torch.version.cuda}; imports of {', '.join(BLOCKED)} "
+             "blocked")
+    check(not reference_modules(),
+          f"loaded before the port: {reference_modules()}")
     from krepp_tpu_torch import resolve_device
     from krepp_tpu_torch.csrc.build import build
 
@@ -760,9 +881,14 @@ def main() -> int:
             phase(4, f"base world: {nk} k-mers indexed in {dt:.1f} s, "
                      f"{BASE_READS} reads written")
         with timed(5, "base dist on cuda"):
+            from krepp_tpu_torch.query import kernels
+
             out_gpu = os.path.join(root, "base_gpu.tsv")
+            kernels.probe_hist_packed.keep_next = True
             dist_on_card(5, idx, fq, out_gpu, BASE_READS,
                          "probe_hist_packed", ("embed", 1), launches)
+        with timed("3b", "probe_hist_packed on a base batch"):
+            kept_batch("probe_hist_packed", "base", kstats)
         with timed(6, "base host check"):
             gpu_vs_cpu(6, idx, fq_cpu, out_gpu,
                        os.path.join(root, "base_cpu.tsv"), CPU_READS)
@@ -817,8 +943,10 @@ def main() -> int:
             phase(11, f"wide world: {wnk} k-mers, 256 leaves, built in "
                       f"{wdt:.1f} s")
             wout = os.path.join(root, "wide_gpu.tsv")
+            kernels.probe_hist_tiles.keep_next = True
             dist_on_card(11, widx, wfq, wout, WIDE_READS, "probe_hist_tiles",
                          ("se", 8), launches)
+            kept_batch("probe_hist_tiles", "wide", kstats)
             gpu_vs_cpu(11, widx, wfq_cpu, wout,
                        os.path.join(root, "wide_cpu.tsv"), WIDE_CPU_READS)
             profile_pass(11, throughput(11, "wide", widx, wfq, card))
@@ -881,7 +1009,10 @@ def main() -> int:
         with timed(19, "inspect"):
             inspect_base(19, idx, nk)
 
-    phase(20, f"total {time.time() - t_start:.1f} s")
+    check(not reference_modules(),
+          f"the run imported {reference_modules()}")
+    phase(20, f"none of {', '.join(BLOCKED)} in sys.modules; total "
+              f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"krepp_tpu_torch/csrc/{name}.cu",

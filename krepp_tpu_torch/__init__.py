@@ -3,13 +3,13 @@
 The JAX package `krepp_tpu` stays the reference; this package reproduces
 its query path with torch ops on an explicit device and hand-written CUDA
 kernels for Hopper (sm_90a) in place of the Pallas TPU kernels. It never
-imports JAX: the framework-free host modules of `krepp_tpu` (params,
+imports JAX and nothing of `krepp_tpu`: the host modules it needs (params,
 reports, tree, index.colors, io.native, core.native_*, core.hll,
-core.stdrand, core.sdust) are reused, and the numpy code of the modules
-that would pull JAX in (index.build/index/artifact, io.fastx, inspect,
-testing) is carried here as JAX-free copies. The C winnower and jplace
-emitter are built by the port's own loaders (core/native_extract.py,
-io/native_report.py).
+core.stdrand; numpy and ctypes code) are its own copies under the same
+names, as is the numpy code of index.build/index/artifact, io.fastx,
+inspect and testing. The five C sources (winnower, jplace emitter, radix
+sort, colorizer, FASTA/FASTQ reader) are copies in csrc/, built at first
+use by the port's own loaders through csrc/build.cc_library.
 
 Conventions:
   * u32 words travel as int32 bit patterns (as the Pallas kernels already
@@ -21,9 +21,8 @@ Conventions:
 
 import torch
 
-from krepp_tpu import REFERENCE_VERSION  # noqa: F401  (JAX-free package root)
-
 __version__ = "0.1.0"
+REFERENCE_VERSION = "v0.8.3"     # of the krepp release whose outputs are matched
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -237,7 +237,7 @@ def cmd_dist(args, inv):
 
 
 def cmd_place(args, inv):
-    from krepp_tpu.tree.newick import Tree
+    from .tree.newick import Tree
 
     from .index.artifact import load_index
     from .query.place import PlaceConfig, run_place
@@ -281,7 +281,7 @@ def cmd_inspect(args, inv):
 
 
 def cmd_sketch(args, inv):
-    from krepp_tpu.params import IndexParams, LSHParams, validate_lsh_config
+    from .params import IndexParams, LSHParams, validate_lsh_config
 
     from .index.artifact import save_sketch_reference
     from .index.build import build_sketch

@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from krepp_tpu.params import LSHParams
+from ..params import LSHParams
 
 # ASCII -> base code table (ref: src/common.cpp:10-14): ACGT/acgt -> 0..3,
 # everything else -> 4.
@@ -58,32 +58,11 @@ def pack_codes_host(codes: np.ndarray, lengths: np.ndarray):
     """[B, L] uint8 base codes -> (packed u32 [B, ceil(L/16)], vbits or None).
 
     vbits (one validity bit per base) is returned only when some read holds
-    a non-ACGT code inside its length. Uses krepp_tpu's native C packer when
-    it builds, else the identical numpy formulation."""
-    from krepp_tpu.core.native_sort import pack_codes as _native_pack
+    a non-ACGT code inside its length. Runs the port's native C packer
+    (core/native_sort.py, built at first use)."""
+    from .native_sort import pack_codes
 
-    native = _native_pack(codes, lengths)
-    if native is not None:
-        return native
-    B, L = codes.shape
-    W = (L + 15) // 16
-    c = np.where(codes < 4, codes, 0).astype(np.uint32)
-    cp = np.zeros((B, W * 16), np.uint32)
-    cp[:, :L] = c
-    cp = cp.reshape(B, W, 16)
-    shifts = (2 * np.arange(16, dtype=np.uint32))[None, None, :]
-    packed = np.bitwise_or.reduce(cp << shifts, axis=2)
-    inv = (codes >= 4) & (np.arange(L)[None, :] < np.asarray(lengths)[:, None])
-    if not bool(inv.any()):
-        return packed, None
-    v = (~inv).astype(np.uint32)
-    Wv = (L + 31) // 32
-    vp = np.zeros((B, Wv * 32), np.uint32)
-    vp[:, :L] = v
-    vp = vp.reshape(B, Wv, 32)
-    vshift = np.arange(32, dtype=np.uint32)[None, None, :]
-    vbits = np.bitwise_or.reduce(vp << vshift, axis=2)
-    return packed, vbits
+    return pack_codes(codes, lengths)
 
 
 def as_i32(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """The port's own loader of the native genome winnower (csrc/extract.c).
 
-Builds the repo's `csrc/extract.c` with the reference's flags into
-`krepp_tpu_torch/csrc/_build/`, under a name keyed on the source hash. The
-compiler writes to a temporary name that is renamed into place, so
-concurrent loaders (xdist workers, build threads) never open a half-written
-library. The library is bound and self-tested with krepp_tpu's own
-`_declare` / `_self_test`; the extraction wrappers are copies of
-krepp_tpu/core/native_extract.py's that call this library.
+Builds the port's `csrc/extract.c` (a byte-identical copy of the
+reference's) with the reference's flags into `krepp_tpu_torch/csrc/_build/`,
+under a name keyed on the source hash. The compiler writes to a temporary
+name that is renamed into place, so concurrent loaders (xdist workers, build
+threads) never open a half-written library. `_declare`, `_self_test` and the
+extraction wrappers are copies of krepp_tpu/core/native_extract.py's that
+call this library.
 
 There is no quiet fallback: a missing compiler or a failed build raises.
 """
@@ -20,19 +20,55 @@ from typing import Iterable, Tuple
 
 import numpy as np
 
-from krepp_tpu.core.hll import HyperLogLog
-from krepp_tpu.core.native_extract import (_HLL_B, MAX_LDIFF_STACK,
-                                           _declare, _self_test)
-from krepp_tpu.params import IndexParams
+from ..csrc.build import BUILD_DIR, CSRC_DIR, cc_library
+from ..params import IndexParams
+from .hll import HLL_B as _HLL_B
+from .hll import HyperLogLog
 
-from ..csrc.build import BUILD_DIR, cc_library
-
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "extract.c")
+SRC = os.path.join(CSRC_DIR, "extract.c")
 CC_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared")
+# extract.c rejects window spans past its stack rings (MAX_LDIFF_STACK)
+MAX_LDIFF_STACK = 4096
 
 _LIBS = {}
 _LOCK = threading.Lock()
+
+
+def _declare(lib) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.krepp_extract.restype = ctypes.c_int64
+    lib.krepp_extract.argtypes = [
+        u8p, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int32,
+        i32p, ctypes.c_int32, i32p, ctypes.c_int32,
+        u32p, u32p, u8p, u8p]
+
+
+def _self_test(lib) -> None:
+    """Tiny end-to-end call; catches a stale/foreign .so before first use
+    (the .so is a build artifact, never shipped: -march=native output can
+    SIGILL on a different host, and mtimes do not survive checkout)."""
+    codes = np.arange(40, dtype=np.uint8) % 4
+    rows = np.empty(64, np.uint32)
+    res = np.empty(64, np.uint32)
+    c1 = np.zeros(1 << _HLL_B, np.uint8)
+    c2 = np.zeros(1 << _HLL_B, np.uint8)
+    ppos = np.arange(5, dtype=np.int32)
+    npos = np.arange(5, 19, dtype=np.int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    kept = lib.krepp_extract(
+        codes.ctypes.data_as(u8p), len(codes), 19, 25, 1, 0, 0,
+        ppos.ctypes.data_as(i32p), len(ppos),
+        npos.ctypes.data_as(i32p), len(npos),
+        rows.ctypes.data_as(u32p), res.ctypes.data_as(u32p),
+        c1.ctypes.data_as(u8p), c2.ctypes.data_as(u8p))
+    if not 0 <= kept <= 64:
+        raise RuntimeError(f"native extractor self-test returned {kept}")
 
 
 def get_lib(build_dir: str = BUILD_DIR) -> ctypes.CDLL:

@@ -3,14 +3,16 @@
 Each `<name>.cu` in this directory exposes a plain `extern "C"` launcher
 and compiles on its own into a shared library (no PyTorch headers, so a
 build takes seconds), loaded with ctypes. The library lands in `_build/`
-beside the sources, named by a hash of the source and the flags, so an
-edited source rebuilds and a stale library is never loaded. nvcc writes to
+beside the sources, named by a hash of the source, the directory's
+headers (`*.cuh`) and the flags, so an edited source or header rebuilds
+and a stale library is never loaded. nvcc writes to
 a temporary name that is renamed into place, so a concurrent loader never
 opens a half-written library. nvcc's output (ptxas register and spill
 report included) is kept next to it as `<library>.log`. `build` starts one
-nvcc per missing library, all at once. `cc_library` builds the repo's C
-host libraries (winnower, jplace emitter) into the same directory the
-same way.
+nvcc per missing library, all at once. `cc_library` builds the port's C
+host libraries (winnower, jplace emitter, radix sort, colorizer,
+FASTA/FASTQ reader; sources in this directory) into the same directory
+the same way.
 """
 
 from __future__ import annotations
@@ -52,8 +54,11 @@ def nvcc_path() -> str:
 def _paths(name: str):
     """(source, library) paths of csrc/<name>.cu."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -16,11 +16,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from krepp_tpu import REFERENCE_VERSION
-from krepp_tpu.index.colors import ColorTable
-from krepp_tpu.params import IndexParams, LSHParams
-from krepp_tpu.tree.flat import FlatTree
-from krepp_tpu.tree.newick import Tree
+from .. import REFERENCE_VERSION
+from ..params import IndexParams, LSHParams
+from ..tree.flat import FlatTree
+from ..tree.newick import Tree
+from .colors import ColorTable
 
 from .build import BuiltIndex, BuiltSketch
 from .index import DeviceIndex, DeviceSketch

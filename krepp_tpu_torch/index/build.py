@@ -18,12 +18,11 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from krepp_tpu.index.colors import ColorBuilder, ColorTable
-from krepp_tpu.params import IndexParams
-from krepp_tpu.tree.flat import FlatTree
-from krepp_tpu.tree.newick import Tree
-
 from ..io.fastx import read_genome_codes
+from ..params import IndexParams
+from ..tree.flat import FlatTree
+from ..tree.newick import Tree
+from .colors import ColorBuilder, ColorTable
 
 # above this local-row-space size the dense cumulative-offset array is not
 # materialised at build; per-entry rows are kept instead
@@ -122,7 +121,7 @@ def build_index_from_sources(names: List[str], contig_source,
     num_threads > 1 winnows genomes on a host thread pool (the native
     winnower releases the GIL); results are consumed in input order, so the
     index is independent of the schedule."""
-    from krepp_tpu.core.native_sort import sort_unique_pairs
+    from ..core.native_sort import sort_unique_pairs
 
     tree, ftree, leaf_se = _prepare_tree(names, tree)
 
@@ -177,7 +176,7 @@ def build_index_from_extracted(names: List[str], extracted,
 
     extracted yields (name, rows, res, rho) per genome; deduped=True
     promises per-genome-unique tuples."""
-    from krepp_tpu.core.native_sort import sort_unique_pairs
+    from ..core.native_sort import sort_unique_pairs
 
     if ftree is None:
         tree, ftree, leaf_se = _prepare_tree(names, tree)
@@ -228,8 +227,8 @@ def _merge_and_color(rows: np.ndarray, res: np.ndarray, leaf: np.ndarray,
     One stable radix sort by (row, residual) key makes every k-mer's group
     contiguous; groups reduce to leaf-set bitmasks whose color ids are
     assigned in lexicographic mask order."""
-    from krepp_tpu.core import native_colorize
-    from krepp_tpu.core.native_sort import pack_keys, sort_kv
+    from ..core import native_colorize
+    from ..core.native_sort import pack_keys, sort_kv
 
     key = pack_keys(rows, res)
     key, leaf_u = sort_kv(key, leaf.astype(np.uint32))
@@ -295,7 +294,7 @@ def build_sketch(path: str, params: IndexParams,
                  progress: bool = True) -> BuiltSketch:
     """Single-genome sketch (ref: src/krepp.cpp:110-119): the genome's
     distinct (row, residual) pairs as a CSR over local rows."""
-    from krepp_tpu.core.native_sort import sort_k
+    from ..core.native_sort import sort_k
 
     rows, res, rho = _extract_genome(read_genome_codes(path), params)
     key = sort_k(rows.astype(np.uint64) << np.uint64(32)

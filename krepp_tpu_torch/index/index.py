@@ -21,12 +21,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from krepp_tpu.index.colors import ColorTable
-from krepp_tpu.params import IndexParams, LSHParams
-from krepp_tpu.tree.flat import FlatTree, placement_weights
-from krepp_tpu.tree.newick import Tree, map_to_qtree
-
+from ..params import IndexParams, LSHParams
+from ..tree.flat import FlatTree, placement_weights
+from ..tree.newick import Tree, map_to_qtree
 from .build import BuiltIndex, BuiltSketch
+from .colors import ColorTable
 
 # Above this many unified rows a dense CSR offset array only pays off when
 # the table content is comparably large (dense when >= 1/4 of the rows are

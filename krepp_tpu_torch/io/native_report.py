@@ -1,6 +1,7 @@
 """The port's loader of the bulk jplace emitter (csrc/report.c).
 
-Builds the repo's `csrc/report.c` with the reference's flags into
+Builds the port's `csrc/report.c` (a byte-identical copy of the
+reference's) with the reference's flags into
 `krepp_tpu_torch/csrc/_build/`, under a name keyed on the source hash. The
 compiler writes to a temporary name that is renamed into place, so
 concurrent loaders (xdist workers, place drivers) never open a
@@ -18,10 +19,9 @@ import threading
 
 import numpy as np
 
-from ..csrc.build import BUILD_DIR, cc_library
+from ..csrc.build import BUILD_DIR, CSRC_DIR, cc_library
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "report.c")
+SRC = os.path.join(CSRC_DIR, "report.c")
 CC_FLAGS = ("-O3", "-fPIC", "-shared")
 
 _LIBS = {}

@@ -17,7 +17,7 @@ from typing import List, Optional, TextIO
 
 import numpy as np
 
-from krepp_tpu.reports import dist_header, fmt5, fmt5_array
+from ..reports import dist_header, fmt5, fmt5_array
 
 from ..core.codec import pad_codes_batch
 from ..index.index import DeviceIndex

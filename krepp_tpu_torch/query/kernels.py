@@ -14,7 +14,11 @@ krepp_tpu/query/pallas_kernels.py:
 A wrapper launches its kernel for CUDA tensors and uses its plain torch
 version (`<name>_ref`, the same contract) only for tensors on the host. It
 never falls back from a failed build or launch. `<name>.launches` counts
-kernel launches (nothing else adds to it).
+kernel launches (nothing else adds to it). The two epilogue wrappers also
+have a measurement hook: with `<name>.keep_next = True` the next launch
+leaves copies of its arguments in `<name>.kept` (and resets the flag), so
+a benchmark can time the kernel on a batch of the main path. Nothing in
+the package sets it.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ MAX_P = 255
 MAX_S = 32
 MAX_C0 = 2
 MAX_W = 8                  # mask words of the tiles kernel (S <= 256)
-MAX_TILES_SX = 12288       # S * X int32 counters in 48 KB of shared memory
+MAX_TILES_SX = 12288       # S * X int32 counters of a warp: 48 KB shared
 # elements of the plain tiles version's largest [rows, P, C0, S] temporary
 _REF_ELEMS = 1 << 25
 
@@ -108,6 +112,10 @@ def probe_hist_packed(res: torch.Tensor, light: torch.Tensor,
     minall = torch.empty((N,), dtype=torch.int32, device=res.device)
     if N == 0:
         return hist, minall
+    if probe_hist_packed.keep_next:
+        probe_hist_packed.keep_next = False
+        probe_hist_packed.kept = (res.clone(), light.clone(), d.clone(), th,
+                                  C0, S)
     fn = _launcher()
     with torch.cuda.device(res.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -120,6 +128,8 @@ def probe_hist_packed(res: torch.Tensor, light: torch.Tensor,
 
 
 probe_hist_packed.launches = 0
+probe_hist_packed.keep_next = False
+probe_hist_packed.kept = None
 
 
 # ------------------------------------------------------------ tiles epilogue
@@ -232,6 +242,10 @@ def probe_hist_tiles(res: torch.Tensor, light: torch.Tensor, d: torch.Tensor,
     minall = torch.empty((N,), dtype=torch.int32, device=res.device)
     if N == 0:
         return hist, minall
+    if probe_hist_tiles.keep_next:
+        probe_hist_tiles.keep_next = False
+        probe_hist_tiles.kept = (res.clone(), light.clone(), d.clone(),
+                                 mask_tab, th, C0, W, S)
     fn = _tiles_launcher()
     with torch.cuda.device(res.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -246,6 +260,8 @@ def probe_hist_tiles(res: torch.Tensor, light: torch.Tensor, d: torch.Tensor,
 
 
 probe_hist_tiles.launches = 0
+probe_hist_tiles.keep_next = False
+probe_hist_tiles.kept = None
 
 
 # ------------------------------------------------------------- hdist chunk

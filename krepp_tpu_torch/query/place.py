@@ -31,8 +31,8 @@ from typing import List, Optional, TextIO
 import numpy as np
 import torch
 
-from krepp_tpu.reports import (begin_jplace, end_jplace, fmt5, fmt5_array,
-                               place_header)
+from ..reports import (begin_jplace, end_jplace, fmt5, fmt5_array,
+                       place_header)
 
 from ..core import codec
 from ..core.compact import compact_mask_indices

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Optional, TextIO
 
-from krepp_tpu.reports import fmt5, seek_header
+from ..reports import fmt5, seek_header
 
 from ..core.codec import pad_codes_batch
 from ..index.index import DeviceSketch

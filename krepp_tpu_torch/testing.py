@@ -11,10 +11,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from krepp_tpu.params import IndexParams, LSHParams
-from krepp_tpu.tree.newick import Tree
-
 from .index.build import build_index_from_sources
+from .params import IndexParams, LSHParams
+from .tree.newick import Tree
 
 
 def mutate_codes(rng, codes: np.ndarray, rate: float) -> np.ndarray:
@@ -85,15 +84,42 @@ def write_fastq(path: str, codes: np.ndarray, prefix: str = "r") -> None:
             f.write(f"@{prefix}{i}\n{row.tobytes().decode()}\n+\n{qual}\n")
 
 
-def epilogue_inputs(rng, N, P, C0, S, th, dark=False):
+def _leaf_words(rng, shape, W, S, leafsets, thin):
+    """[*shape, W] u32 leaf-set mask words with no bit at or above S:
+    "random" (about half the leaves, with `thin` a quarter in half of the
+    words; a tenth of the sets empty), "dense" (every leaf of every word) or
+    "last" (leaf S - 1 alone)."""
+    top = S - 32 * (W - 1)
+    top_bits = np.uint32((1 << top) - 1 if top < 32 else 0xFFFFFFFF)
+    if leafsets == "dense":
+        m = np.full(shape + (W,), 0xFFFFFFFF, np.uint32)
+        m[..., W - 1] = top_bits
+        return m
+    if leafsets == "last":
+        m = np.zeros(shape + (W,), np.uint32)
+        m[..., W - 1] = np.uint32(1) << np.uint32(top - 1)
+        return m
+    if leafsets != "random":
+        raise ValueError(f"leafsets {leafsets!r}")
+    m = rng.integers(0, 2 ** 32, shape + (W,), dtype=np.uint32)
+    if thin:                            # sparse leaf sets as well as dense
+        m &= np.where(rng.random(shape + (W,)) < 0.5,
+                      rng.integers(0, 2 ** 32, shape + (W,), dtype=np.uint32),
+                      np.uint32(0xFFFFFFFF))
+    m[..., W - 1] &= top_bits
+    m[rng.random(shape) < 0.1] = 0
+    return m
+
+
+def epilogue_inputs(rng, N, P, C0, S, th, dark=False, leafsets="random"):
     """Random probe-epilogue rows with planted near matches, for comparing
     probe_hist_packed with its plain version: (res [N, P] u32, light [N, P]
     bool, d [N, P, 1 + 2*C0] u32 gathered bucket rows with enc_c at column
-    1 + 2c and mask_c (S leaf bits) at 2 + 2c). dark=True clears light."""
+    1 + 2c and mask_c (S leaf bits) at 2 + 2c). dark=True clears light;
+    leafsets as in _leaf_words."""
     res = rng.integers(0, 2 ** 32, (N, P), dtype=np.uint32)
     light = (rng.random((N, P)) < 0.7) & (not dark)
     d = rng.integers(0, 2 ** 32, (N, P, 1 + 2 * C0), dtype=np.uint32)
-    leaf_bits = np.uint32((1 << S) - 1 if S < 32 else 0xFFFFFFFF)
     for c in range(C0):
         # candidates 0..th+1 bit flips away from the probe residual
         flips = rng.integers(0, th + 2, (N, P))
@@ -103,14 +129,13 @@ def epilogue_inputs(rng, N, P, C0, S, th, dark=False):
             enc ^= np.where(flips > b, np.uint32(1) << bit, np.uint32(0))
         use = rng.random((N, P)) < 0.6
         d[..., 1 + 2 * c] = np.where(use, enc, d[..., 1 + 2 * c])
-        msk = rng.integers(0, 2 ** 32, (N, P), dtype=np.uint32) & leaf_bits
-        d[..., 2 + 2 * c] = np.where(rng.random((N, P)) < 0.1,
-                                     np.uint32(0), msk)
+        d[..., 2 + 2 * c] = _leaf_words(rng, (N, P), 1, S, leafsets,
+                                        False)[..., 0]
     return res, light, d
 
 
 def tiles_inputs(rng, N, P, C0, W, S, th, flavor="embed", dark=False,
-                 nse=97):
+                 nse=97, leafsets="random"):
     """Random inputs of probe_hist_tiles with planted near matches:
     (res [N, P] u32, light [N, P] bool, d [N, P, width] u32 gathered bucket
     rows, mask_tab [nse, W] u32 or None). flavor "embed" puts each
@@ -118,21 +143,12 @@ def tiles_inputs(rng, N, P, C0, W, S, th, flavor="embed", dark=False,
     enc_c at 1 + c and a color id at 1 + C0 + c into mask_tab (width
     1 + 2 C0). Candidates are 0..th+1 bit flips from the residual; about a
     tenth of the masks are all zero (no match); mask bits sit below S.
-    dark=True clears light."""
+    dark=True clears light; leafsets as in _leaf_words."""
     res = rng.integers(0, 2 ** 32, (N, P), dtype=np.uint32)
     light = (rng.random((N, P)) < 0.7) & (not dark)
 
     def masks(shape):
-        m = rng.integers(0, 2 ** 32, shape + (W,), dtype=np.uint32)
-        # sparse leaf sets as well as dense ones
-        m &= np.where(rng.random(shape + (W,)) < 0.5,
-                      rng.integers(0, 2 ** 32, shape + (W,), dtype=np.uint32),
-                      np.uint32(0xFFFFFFFF))
-        top = S - 32 * (W - 1)
-        m[..., W - 1] &= np.uint32((1 << top) - 1 if top < 32
-                                   else 0xFFFFFFFF)
-        m[rng.random(shape) < 0.1] = 0
-        return m
+        return _leaf_words(rng, shape, W, S, leafsets, True)
 
     encs = []
     for _ in range(C0):

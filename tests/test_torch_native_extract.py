@@ -6,6 +6,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from krepp_tpu.index import build as jbuild
 from krepp_tpu.params import IndexParams, LSHParams
@@ -34,6 +35,37 @@ def test_concurrent_first_builds_all_load(tmp_path):
         assert out.strip() == "loaded"
     built = os.listdir(build_dir)
     assert len(built) == 1 and built[0].startswith("libextract-") \
+        and built[0].endswith(".so"), built
+
+
+_LOAD_ANY = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1]).get_lib(sys.argv[2])
+print("loaded")
+"""
+
+
+@pytest.mark.parametrize("module,stem", [
+    ("krepp_tpu_torch.core.native_sort", "sortkv"),
+    ("krepp_tpu_torch.core.native_colorize", "colorize"),
+    ("krepp_tpu_torch.io.native", "fastx"),
+    ("krepp_tpu_torch.io.native_report", "report"),
+])
+def test_concurrent_first_builds_of_the_other_loaders(tmp_path, module, stem):
+    """The loaders that share csrc/build.cc_library: six processes build
+    into one empty directory at once and every one loads a whole library."""
+    build_dir = tmp_path / "build"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", _LOAD_ANY, module,
+                               str(build_dir)], cwd=tmp_path, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert out.strip() == "loaded"
+    built = os.listdir(build_dir)
+    assert len(built) == 1 and built[0].startswith(f"lib{stem}-") \
         and built[0].endswith(".so"), built
 
 

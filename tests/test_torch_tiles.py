@@ -56,16 +56,42 @@ TILES_CASES = [  # (N, P, C0, W, S, th, flavor, dark)
 ]
 
 
+# shapes the CUDA kernel's staging makes delicate: row spans of
+# P * width * 4 bytes that are not multiples of 16, one row, fewer rows than
+# a block takes, every leaf set, leaf S - 1 alone, S = 33 and S = 255
+TILES_STAGING_CASES = [  # (N, P, C0, W, S, th, flavor, dark, leafsets)
+    (21, 1, 2, 8, 255, 4, "se", False, "random"),
+    (19, 122, 2, 8, 256, 4, "se", False, "random"),
+    (17, 166, 2, 8, 256, 4, "se", False, "dense"),
+    (11, 255, 2, 8, 255, 4, "embed", False, "dense"),
+    (1, 164, 2, 8, 256, 4, "se", False, "random"),
+    (13, 164, 2, 8, 256, 4, "se", False, "last"),
+    (15, 122, 2, 2, 33, 4, "embed", False, "last"),
+    (9, 166, 1, 2, 33, 4, "se", False, "random"),
+]
+
+
 @pytest.mark.parametrize("N,P,C0,W,S,th,flavor,dark", TILES_CASES)
 def test_tiles_ref_matches_pallas_interpret(N, P, C0, W, S, th, flavor,
                                              dark):
+    _check_ref_vs_pallas(N, P, C0, W, S, th, flavor, dark, "random")
+
+
+@pytest.mark.parametrize("N,P,C0,W,S,th,flavor,dark,leafsets",
+                         TILES_STAGING_CASES)
+def test_tiles_ref_matches_pallas_on_staging_shapes(N, P, C0, W, S, th,
+                                                     flavor, dark, leafsets):
+    _check_ref_vs_pallas(N, P, C0, W, S, th, flavor, dark, leafsets)
+
+
+def _check_ref_vs_pallas(N, P, C0, W, S, th, flavor, dark, leafsets):
     import jax.numpy as jnp
 
     from krepp_tpu.query.pallas_kernels import probe_hist_tiles as jtiles
 
     rng = np.random.default_rng(N * 7 + P + W + S + th)
     res, light, d, mask_tab = tiles_inputs(rng, N, P, C0, W, S, th, flavor,
-                                           dark)
+                                           dark, 97, leafsets)
     enc_g, msk_g = _pallas_planes(d, mask_tab, C0, W)
     want_h, want_m = jtiles(jnp.asarray(enc_g), jnp.asarray(msk_g),
                             jnp.asarray(res), jnp.asarray(light), th, C0, W,
@@ -78,6 +104,93 @@ def test_tiles_ref_matches_pallas_interpret(N, P, C0, W, S, th, flavor,
         assert int(got_h.sum()) == 0 and bool((got_m == 255).all())
     else:
         assert got_h.sum() > 0 and (got_m.numpy() < 255).any()
+    if leafsets == "last":
+        assert int(got_h[:, :S - 1].sum()) == 0
+
+
+def _transpose32(v):
+    """The kernels' butterfly on one warp's 32 words (numpy u64 holding
+    u32): lane s ends with bit p = what bit s of lane p was. Five stages;
+    a lane keeps half its columns and takes its partner's, rotated."""
+    lane = np.arange(32)
+    for j, m in ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F),
+                 (2, 0x33333333), (1, 0x55555555)):
+        keep = np.where(lane & j, ~m & 0xFFFFFFFF, m).astype(np.uint64)
+        rot = np.where(lane & j, 32 - j, j).astype(np.uint64)
+        t = v[lane ^ j]
+        r = ((t << rot) | (t >> (np.uint64(32) - rot))) & np.uint64(0xFFFFFFFF)
+        v = (v & keep) | (r & ~keep & np.uint64(0xFFFFFFFF))
+    return v
+
+
+def _warp_model(res, light, d, mask_tab, th, C0, W, S):
+    """The CUDA kernels' counting scheme in numpy, one warp per row: per
+    32-position chunk a lane orders its candidates by class and forms two
+    disjoint planes per mask word (a: the lower class, b: the other & ~a);
+    the planes are transposed, and lane s adds
+    popcount((Ta & ballot(class A == x)) | (Tb & ballot(class B == x)))."""
+    N, P, _ = d.shape
+    X = th + 1
+    hist = np.zeros((N, S, X), np.int32)
+    minall = np.full(N, 255, np.int32)
+    for n in range(N):
+        for p0 in range(0, P, 32):
+            hd = np.full((32, 2), 255, np.int64)
+            msk = np.zeros((32, 2, W), np.uint64)
+            for ln in range(min(32, P - p0)):
+                p = p0 + ln
+                if not light[n, p]:
+                    continue
+                for c in range(C0):
+                    if mask_tab is None:
+                        enc = d[n, p, 1 + c * (1 + W)]
+                        words = d[n, p, 2 + c * (1 + W): 2 + c * (1 + W) + W]
+                    else:
+                        enc = d[n, p, 1 + c]
+                        se = min(int(d[n, p, 1 + C0 + c]), len(mask_tab) - 1)
+                        words = mask_tab[se]
+                    z = int(enc) ^ int(res[n, p])
+                    h = bin((z | z >> 16) & 0xFFFF).count("1")
+                    if h <= th and words.any():
+                        hd[ln, c] = h
+                        msk[ln, c] = words
+                        minall[n] = min(minall[n], h)
+            swap = hd[:, 1] < hd[:, 0]
+            hA = np.where(swap, hd[:, 1], hd[:, 0])
+            hB = np.where(swap, hd[:, 0], hd[:, 1])
+            lanes = np.uint64(1) << np.arange(32, dtype=np.uint64)
+            for w in range(W):
+                a = np.where(swap, msk[:, 1, w], msk[:, 0, w])
+                b = np.where(swap, msk[:, 0, w], msk[:, 1, w]) & ~a
+                ta, tb = _transpose32(a), _transpose32(b)
+                for x in range(min(X, 17)):
+                    MA = lanes[hA == x].sum(dtype=np.uint64)
+                    MB = lanes[hB == x].sum(dtype=np.uint64)
+                    cnt = (ta & MA) | (tb & MB)
+                    for s in range(min(32, S - 32 * w)):
+                        hist[n, 32 * w + s, x] += bin(int(cnt[s])).count("1")
+    return hist, minall
+
+
+@pytest.mark.parametrize("N,P,C0,W,S,th,flavor,leafsets", [
+    (3, 70, 2, 2, 48, 4, "embed", "random"),
+    (2, 33, 2, 8, 255, 4, "se", "dense"),
+    (2, 64, 1, 1, 24, 6, "embed", "last"),
+])
+def test_warp_counting_scheme_matches_ref(N, P, C0, W, S, th, flavor,
+                                          leafsets):
+    """The scheme both CUDA kernels use (bit-plane transposes, class
+    ballots, one popcount per leaf and class) gives the plain version's
+    counts; the kernels themselves are held to it on the card."""
+    rng = np.random.default_rng(N + P + S)
+    res, light, d, mask_tab = tiles_inputs(rng, N, P, C0, W, S, th, flavor,
+                                           False, 97, leafsets)
+    want_h, want_m = kernels.probe_hist_tiles_ref(
+        *_torch_args(res, light, d, mask_tab), th, C0, W, S)
+    got_h, got_m = _warp_model(res, light, d, mask_tab, th, C0, W, S)
+    assert np.array_equal(got_h, want_h.numpy())
+    assert np.array_equal(got_m, want_m.numpy())
+    assert got_h.sum() > 0
 
 
 def test_tiles_ref_agrees_with_packed_ref_and_bounds_its_chunks(monkeypatch):
@@ -162,11 +275,12 @@ def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     rng = np.random.default_rng(5)
-    for (N, P, C0, W, S, th, flavor, dark) in TILES_CASES + [
-            (4097, 122, 2, 8, 256, 4, "se", False),
-            (999, 374, 2, 1, 24, 4, "embed", False)]:
+    cases = [c + ("random",) for c in TILES_CASES + [
+        (4097, 122, 2, 8, 256, 4, "se", False),
+        (999, 374, 2, 1, 24, 4, "embed", False)]] + TILES_STAGING_CASES
+    for (N, P, C0, W, S, th, flavor, dark, leafsets) in cases:
         args = _torch_args(*tiles_inputs(rng, N, P, C0, W, S, th, flavor,
-                                         dark))
+                                         dark, 97, leafsets))
         want = kernels.probe_hist_tiles_ref(*args, th, C0, W, S)
         got = kernels.probe_hist_tiles(
             *(None if a is None else a.cuda() for a in args), th, C0, W, S)
