@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths, `dist` and `place` through its CLI on generated
-worlds and the probe microbenchmark, and checks them:
+Drives the port's paths, `index`, `dist` and `place` through its CLI on
+generated worlds and the probe microbenchmark, and checks them:
 
   1. device: CUDA must be available; prints the card and its power limit;
      `krepp_tpu` and `jax` are blocked from import for the whole run, and
@@ -18,17 +18,26 @@ worlds and the probe microbenchmark, and checks them:
      are not 16-byte aligned, N = 1, every leaf set, leaf S - 1 alone),
      with median times from CUDA events beside the bound: the least bytes
      the function must move over the card's 3.35 TB/s; for dma_gather
-     `tab[idx]` is the one PyTorch call for the same function; the tiles
-     kernel is also timed at its main shape with every position dark,
-     where it only moves those bytes;
+     `tab[idx]` is the one PyTorch call for the same function, and the
+     kernel is also timed on a [32M x 5] table, which the card's L2 cannot
+     hold, beside the sector-granular figure (rows fetched in whole
+     32-byte sectors), and at the main shape also through its bare
+     launcher into an output allocated once (no wrapper's host time
+     between launches); the tiles kernel is also timed at its main shape
+     with every position dark, where it only moves those bytes;
   3b. (runs after 5 and after 11) each epilogue kernel again on a batch
      of the main path: the arguments of the first probe_hist_packed launch
      of the base world's dist run and of the first probe_hist_tiles launch
      of the wide world's, kept by the wrappers' `keep_next` hook; bit-equal
      to the plain version, kernel time, bound and share;
   4. base world: bench.py's "base" configuration (24 genomes x 500 kbp,
-     k=27 h=11 w=35 m=4); builds the index, saves it, writes 65,536 reads
-     of 150 bp as FASTQ;
+     k=27 h=11 w=35 m=4); writes the genomes as FASTA files, the name ->
+     path TSV and the Newick tree, builds the index from them with the
+     port's `index` command (host; k-mers/s with the --num-threads used,
+     bench.py's "build" cell, the C libraries compiled before the clock
+     starts; the k-mer count is checked), writes 65,536
+     reads of 150 bp as FASTQ; phases 5, 6, 8, 9, 13, 15, 19 and 20 run on
+     the directory the command wrote;
   5. dist through the CLI on cuda: framing, one answer per read, kernel
      launches counted from zero (probe_hist_packed, not the tiles kernel),
      engine mode, overflow re-runs per batch;
@@ -72,13 +81,23 @@ worlds and the probe microbenchmark, and checks them:
      mutation through the CLI on cuda, the first 2,048 reads against the
      host, reads/s (warm-up + 3 timed passes);
  19. inspect of the base index through the CLI: its framing, and the
-     k-mer count its color histogram sums to.
+     k-mer count its color histogram sums to;
+ 20. index round trips: base's two --no-frac partials (-r 0, -r 1,
+     --partial) built into one directory and base again with
+     --export-reference-format (its native files then removed), each
+     loaded and queried by dist through the CLI on cuda with the first
+     8,192 base reads: the rows of phase 5's base run for those reads
+     (same reads, same references, distances within 1e-5); inspect of the
+     reference-format directory prints the binary color graph's
+     OUTDEGREE histogram.
 
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
 before the last is the kernels JSON (launches: counted over the CLI runs on
-cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17 and 18, and for dma_gather
+cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18 and 20, and for dma_gather
 over the microbenchmark of phase 12; ms, plain_ms, bound_ms and library_ms
-at the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b);
+at the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b,
+dma_gather's cold_ms and cold_bound_ms on the [32M x 5] table and its
+launcher_ms through the bare launcher);
 the last line is {"ok": true, "device": {...}}. Without a card it exits 1
 and prints no result.
 """
@@ -101,6 +120,8 @@ import time
 BASE = dict(seed=7, nleaves=24, glen=500_000, rate=0.05, k=27, h=11, w=35,
             m=4)                              # bench.py CONFIGS["base"]
 BASE_READS = 65536
+BASE_KMERS = 1165849                          # PERF.md section 4
+ROUND_TRIP_READS = 8192
 SPARSE = dict(seed=11, nleaves=24, glen=200_000, rate=0.05, k=29, h=13,
               w=35, m=4)                      # reference-default k, h
 SPARSE_READS = 8192
@@ -127,6 +148,7 @@ KERNELS = ("probe_hist_packed", "probe_hist_tiles", "hdist_chunk",
            "dma_gather")
 EPILOGUES = {"probe_hist_packed", "probe_hist_tiles"}
 COPY_ONLY = "main shape, every position dark (copy only)"
+COLD_GATHER = "[32M x 5] n=4M"                # a table the L2 cannot hold
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 BLOCKED = ("jax", "jaxlib", "krepp_tpu")
 REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
@@ -242,6 +264,35 @@ def _compare(label: str, got, want, main: bool, kernel, ref, args,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
 
+def sector_granular_ms(width: int, n: int) -> float:
+    """The byte bound of an n-row gather with each table row counted in
+    the whole 32-byte sectors it touches (the mean over all offsets of a
+    4 * width byte row at that stride), in ms."""
+    row = 4 * width
+    fetched = statistics.mean(32 * ((i * row % 32 + row + 31) // 32)
+                              for i in range(32))
+    return n * (4 + fetched + row) / HBM_BYTES_PER_S * 1e3
+
+
+def gather_launcher_ms(tab, idx, rows: int) -> float:
+    """dma_gather's time without its wrapper: the library's entry point
+    called into an output allocated once (checked equal to tab[idx])."""
+    import torch
+
+    from krepp_tpu_torch.query import kernels
+
+    fn = kernels._gather_launcher()
+    out = torch.empty((idx.shape[0], tab.shape[1]), dtype=torch.int32,
+                      device=tab.device)
+    args = (tab.data_ptr(), tab.shape[0], tab.shape[1], idx.data_ptr(),
+            idx.shape[0], rows, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(fn(*args) == 0, "bare dma_gather did not launch")
+    check(torch.equal(out, tab[idx.long()]), "bare dma_gather != tab[idx]")
+    ms = cuda_median_ms(lambda: fn(*args))
+    return ms
+
+
 def kernels_vs_plain():
     """Phase 3: bit-equality at the main and edge shapes; times at main."""
     import numpy as np
@@ -344,8 +395,18 @@ def kernels_vs_plain():
         ("odd n=1000003", 2 << 20, 5, 1000003, 256),
         ("width 1", 2 << 20, 1, 1 << 20, 256),
         ("width 9", 1 << 20, 9, 1000003, 512),
-        ("[32M x 5] n=4M", 32 << 20, 5, 4 << 20, 256),
+        (COLD_GATHER, 32 << 20, 5, 4 << 20, 256),
         ("n=0", 1000, 5, 0, 256),
+        # the tiling's edges: one row and an odd count of rows a tile (runs
+        # that start off a 16-byte line), the most rows, n below one tile,
+        # a row of more words than a block has threads
+        ("tile 1", 1 << 20, 5, 100003, 1),
+        ("tile 3", 1 << 20, 5, 1000003, 3),
+        ("tile 1024", 2 << 20, 5, 1000003, 1024),
+        ("width 9 tile 1024", 1 << 20, 9, 1000003, 1024),
+        ("width 4", 2 << 20, 4, 1000003, 256),
+        ("n=100", 2 << 20, 5, 100, 256),
+        ("width 9000 n=37", 4096, 9000, 37, 256),
     ]
     for i, (label, nrows, width, n, rows) in enumerate(gather):
         tab = torch.randint(-2 ** 31, 2 ** 31, (nrows, width),
@@ -353,13 +414,30 @@ def kernels_vs_plain():
         idx = torch.randint(0, nrows, (n,), dtype=torch.int32,
                             device="cuda")
         r = _compare(label, (kernels.dma_gather(tab, idx, rows),),
-                     (kernels.dma_gather_ref(tab, idx, rows),), i == 0,
+                     (kernels.dma_gather_ref(tab, idx, rows),),
+                     i == 0 or label == COLD_GATHER,
                      kernels.dma_gather, kernels.dma_gather_ref,
                      (tab, idx, rows), dark=True,     # no match counts
                      library=lambda: tab[idx],
                      # the rows the indices name, not the whole table
                      moved=n * 4 + 2 * n * width * 4)
-        result.setdefault("dma_gather", r)
+        if r is not None:
+            sector_ms = sector_granular_ms(width, n)
+            phase(3, f"dma_gather {label}: sector-granular figure "
+                     f"{sector_ms:.4f} ms (rows fetched in whole 32-byte "
+                     f"sectors), {100 * sector_ms / r['ms']:.1f}% of it "
+                     f"reached")
+        if i == 0:
+            r["launcher_ms"] = gather_launcher_ms(tab, idx, rows)
+            phase(3, f"dma_gather {label}: {r['launcher_ms']:.4f} ms through "
+                     f"the bare launcher (another method than `kernel` "
+                     f"above: output allocated once, no wrapper)")
+        if label == COLD_GATHER:
+            result["dma_gather"].update(cold_ms=r["ms"],
+                                        cold_bound_ms=r["bound_ms"],
+                                        cold_library_ms=r["library_ms"])
+        else:
+            result.setdefault("dma_gather", r)
         del tab, idx
     return result
 
@@ -405,6 +483,65 @@ def make_world(cfg: dict, root: str, tag: str):
     idx = os.path.join(root, f"idx_{tag}")
     save_native(built, idx)
     return idx, genomes, built.nkmers, time.time() - t0
+
+
+def index_cli(argv, seed: int, threads: int):
+    """`index` through cli.main in this process (it runs on the host and
+    takes no --device); returns (k-mers indexed, seconds)."""
+    from krepp_tpu_torch import cli
+
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["--seed", str(seed), "--num-threads", str(threads),
+                       "index"] + argv)
+    dt = time.time() - t0
+    check(rc == 0, f"index returned {rc}")
+    said = re.search(r"Total number of k-mers indexed: (\d+)", err.getvalue())
+    check(said is not None, "index did not print its k-mer count")
+    return int(said.group(1)), dt
+
+
+def lsh_flags(cfg: dict):
+    return ["-k", str(cfg["k"]), "-h", str(cfg["h"]), "-w", str(cfg["w"]),
+            "-m", str(cfg["m"])]
+
+
+def build_base(n: int, root: str, card: str):
+    """The base world as files (FASTA per genome, name -> path TSV, Newick
+    tree) and its index built from them by the port's `index` command.
+    Returns (index path, genomes, k-mers, (TSV path, tree path))."""
+    import numpy as np
+
+    from krepp_tpu_torch.core import (native_colorize, native_extract,
+                                      native_sort)
+    from krepp_tpu_torch.io import native as native_fastx
+    from krepp_tpu_torch.testing import make_world_codes, write_world_files
+
+    # the C libraries `index` uses compile at first use: before the clock
+    t0 = time.time()
+    for mod in (native_fastx, native_extract, native_sort, native_colorize):
+        mod.get_lib()
+    phase(n, f"C libraries of the build (reader, winnower, sort, colorizer)"
+             f" compiled or found in {time.time() - t0:.2f} s")
+    nwk, genomes = make_world_codes(
+        np.random.default_rng(BASE["seed"]), nleaves=BASE["nleaves"],
+        glen=BASE["glen"], rate=BASE["rate"])
+    files = write_world_files(os.path.join(root, "base_refs"), nwk, genomes)
+    idx = os.path.join(root, "idx_base")
+    threads = os.cpu_count() or 1
+    nk, dt = index_cli(["-i", files[0], "-o", idx, "-t", files[1]]
+                       + lsh_flags(BASE), BASE["seed"], threads)
+    check(nk == BASE_KMERS, f"index built {nk} k-mers, want {BASE_KMERS}")
+    check(sorted(os.listdir(idx)) == ["arrays.npz", "meta.json",
+                                      "reflist.txt", "tree.nwk"],
+          f"index wrote {sorted(os.listdir(idx))}")
+    nbases = sum(len(c) for contigs in genomes.values() for c in contigs)
+    phase(n, f"`index` through the CLI (host, --num-threads {threads}): "
+             f"{nk} k-mers from {nbases} bases in {dt:.2f} s, "
+             f"{nk / dt:.1f} k-mers/s, {nbases / dt:.1f} bases/s on the "
+             f"host of {card}")
+    return idx, genomes, nk, files
 
 
 def write_reads(genomes, seed: int, n: int, rlen: int, ncpu: int, root: str,
@@ -504,10 +641,19 @@ def gpu_vs_cpu(n: int, idx: str, fq_cpu: str, out_gpu: str, out_cpu: str,
     rc, _ = run_cli(["dist", "-q", fq_cpu, "-i", idx, "-o", out_cpu,
                      "--device", "cpu"])
     check(rc == 0, f"cpu cli returned {rc}")
-    cpu_rows = read_rows(out_cpu)
-    keep = {f"r{i}" for i in range(ncpu)}
-    gpu_rows = [r for r in read_rows(out_gpu) if r.split("\t", 1)[0] in keep]
+    same_rows(n, f"cuda vs cpu on {ncpu} reads",
+              first_reads(read_rows(out_gpu), ncpu), read_rows(out_cpu))
 
+
+def first_reads(rows, nreads: int):
+    """The rows of reads r0 .. r{nreads - 1}."""
+    keep = {f"r{i}" for i in range(nreads)}
+    return [r for r in rows if r.split("\t", 1)[0] in keep]
+
+
+def same_rows(n, label: str, got_rows, want_rows):
+    """Two dist reports hold the same (read, reference) pairs, with
+    distances within DIST_TOL."""
     def keyed(rows):
         out = {}
         for r in rows:
@@ -515,16 +661,15 @@ def gpu_vs_cpu(n: int, idx: str, fq_cpu: str, out_gpu: str, out_cpu: str,
             out[(sid, ref)] = float(d)
         return out
 
-    g, c = keyed(gpu_rows), keyed(cpu_rows)
+    g, c = keyed(got_rows), keyed(want_rows)
     check(g.keys() == c.keys(), f"row sets differ: {len(g.keys() ^ c.keys())}"
                                 " (read, reference) pairs")
     worst = max((abs(g[k] - c[k]) for k in g
                  if not (math.isnan(g[k]) and math.isnan(c[k]))), default=0.0)
     check(worst <= DIST_TOL, f"distance differs by {worst}")
-    ndiff = sum(a != b for a, b in zip(gpu_rows, cpu_rows))
-    phase(n, f"cuda vs cpu on {ncpu} reads: {len(c)} rows identical "
-             f"as sets, max |dist diff| {worst:g}, rows differing in bytes "
-             f"{ndiff}")
+    ndiff = sum(a != b for a, b in zip(got_rows, want_rows))
+    phase(n, f"{label}: {len(c)} rows identical as sets, max |dist diff| "
+             f"{worst:g}, rows differing in bytes {ndiff}")
 
 
 def throughput(n: int, name: str, idx: str, fq: str, card: str,
@@ -827,6 +972,56 @@ def inspect_base(n: int, idx: str, nkmers: int):
     check(mers == nkmers, f"MER_COUNT sums to {mers}, index holds {nkmers}")
     phase(n, f"inspect: {len(lines)} lines, {len(blocks)} partial blocks, "
              f"MER_COUNT sums to the {nkmers} k-mers")
+    return lines
+
+
+def round_trips(n: int, root: str, files, fq: str, base_out: str, nk: int,
+                total: dict):
+    """Phase 20: what `index --partial` and `index
+    --export-reference-format` write, read back and queried on the card:
+    the rows of the plain base index for the first ROUND_TRIP_READS reads."""
+    head = os.path.join(root, "base_head.fq")
+    with open(fq) as f, open(head, "w") as g:
+        for _ in range(4 * ROUND_TRIP_READS):
+            g.write(f.readline())
+    want = first_reads(read_rows(base_out), ROUND_TRIP_READS)
+    threads = os.cpu_count() or 1
+    common = ["-i", files[0], "-t", files[1]] + lsh_flags(BASE)
+
+    parts = os.path.join(root, "idx_base_parts")
+    counts = [index_cli(common + ["-o", parts, "--no-frac", "-r", str(r),
+                                  "--partial"], BASE["seed"], threads)
+              for r in (0, 1)]
+    check(sum(c for c, _ in counts) == nk,
+          f"the partials hold {[c for c, _ in counts]} k-mers, not {nk}")
+    metas = sorted(x for x in os.listdir(parts) if x.startswith("meta"))
+    check(len(metas) == 2 and "meta.json" not in metas,
+          f"--partial wrote {metas}")
+    phase(n, f"two --no-frac partials: {[c for c, _ in counts]} k-mers in "
+             f"{[round(dt, 2) for _, dt in counts]} s, {metas}")
+
+    refd = os.path.join(root, "idx_base_ref")
+    rk, rdt = index_cli(common + ["-o", refd, "--export-reference-format"],
+                        BASE["seed"], threads)
+    check(rk == nk, f"the reference-format build holds {rk} k-mers")
+    for name in ("meta.json", "arrays.npz", "reflist.txt", "tree.nwk"):
+        os.remove(os.path.join(refd, name))
+    kept = sorted(os.listdir(refd))
+    check({x.split("-")[0] for x in kept} >= {"cmer", "crecord", "inc",
+                                              "metadata", "reflist", "tree"},
+          f"--export-reference-format wrote {kept}")
+    phase(n, f"reference format: {rk} k-mers in {rdt:.2f} s (with the "
+             f"native files, removed now), {kept}")
+
+    for tag, d in (("partials", parts), ("reference format", refd)):
+        out = os.path.join(root, f"rt_{tag.split()[0]}.tsv")
+        dist_on_card(n, d, head, out, ROUND_TRIP_READS, "probe_hist_packed",
+                     ("embed", 1), total)
+        same_rows(n, f"{tag} vs the base index on {ROUND_TRIP_READS} reads",
+                  read_rows(out), want)
+    lines = inspect_base(n, refd, nk)
+    check(any("\tOUTDEGREE_COUNT\t" in ln for ln in lines),
+          "inspect of the reference-format index has no OUTDEGREE rows")
 
 
 def main() -> int:
@@ -875,11 +1070,10 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="krepp_smoke_") as root:
         with timed(4, "base world"):
-            idx, bgen, nk, dt = make_world(BASE, root, "base")
+            idx, bgen, nk, base_files = build_base(4, root, card)
             fq, fq_cpu = write_reads(bgen, BASE["seed"] + 1, BASE_READS, 150,
                                      CPU_READS, root, "base")
-            phase(4, f"base world: {nk} k-mers indexed in {dt:.1f} s, "
-                     f"{BASE_READS} reads written")
+            phase(4, f"base world: {BASE_READS} reads written")
         with timed(5, "base dist on cuda"):
             from krepp_tpu_torch.query import kernels
 
@@ -1009,9 +1203,12 @@ def main() -> int:
         with timed(19, "inspect"):
             inspect_base(19, idx, nk)
 
+        with timed(20, "index round trips"):
+            round_trips(20, root, base_files, fq, out_gpu, nk, launches)
+
     check(not reference_modules(),
           f"the run imported {reference_modules()}")
-    phase(20, f"none of {', '.join(BLOCKED)} in sys.modules; total "
+    phase(21, f"none of {', '.join(BLOCKED)} in sys.modules; total "
               f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -1,11 +1,10 @@
-"""Command-line interface of the port: `dist`, `place`, `sketch`, `seek`
-and `inspect` (`index` not ported yet).
+"""Command-line interface of the port: `index`, `dist`, `place`,
+`inspect`, `sketch` and `seek`.
 
 Mirrors krepp_tpu/cli.py's surfaces, flags and validation (ref:
 src/krepp.cpp:508-800), plus `--device` on the commands that run on a
-device (default cuda; the host runs only with --device cpu). `index` is
-recognised and exits with a message naming the ROADMAP slice that ports
-it.
+device (default cuda; the host runs only with --device cpu). `index`,
+`sketch` and `inspect` run on the host and take no `--device`.
 """
 
 from __future__ import annotations
@@ -18,11 +17,6 @@ import sys
 import time
 
 from . import REFERENCE_VERSION, __version__
-
-# subcommand -> where the ROADMAP puts its port
-NOT_PORTED = {
-    "index": "slice 6 (device winnowing) and the index subcommand",
-}
 
 
 def _invocation() -> str:
@@ -47,6 +41,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Print run statistics (engine mode, per-batch "
                         "overflow re-runs) to stderr.")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    sc = sub.add_parser("index", add_help=False,
+                        help="Build an index from k-mers of reference "
+                             "genomes.")
+    sc.add_argument("--help", action="help")
+    sc.add_argument("-i", "--input-file", required=True,
+                    help="TSV file mapping reference IDs to paths.")
+    sc.add_argument("-o", "--index-dir", required=True,
+                    help="Directory in which the index will be stored.")
+    sc.add_argument("-t", "--nwk-file", default=None,
+                    help="Newick file for the backbone tree (must be rooted).")
+    _add_lsh_opts(sc, 29, "k-16")
+    sc.add_argument("--export-reference-format", action="store_true",
+                    help="Also write the reference binary artifact files.")
+    sc.add_argument("--mesh", type=int, default=0, dest="mesh",
+                    help="Winnow genomes data-parallel across this many "
+                         "devices (not ported yet; 0 = host build).")
+    sc.add_argument("--partial", action="store_true",
+                    help="Write a suffixed partial artifact so independently"
+                         " built residues (e.g. -r 0/-r 1 with --no-frac) "
+                         "can share one directory and combine at load.")
 
     sc = sub.add_parser("dist", add_help=False,
                         help="Estimate distances of queries to genomes in "
@@ -99,10 +114,6 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("--hdist-th", type=int, default=4,
                     help="Maximum Hamming distance for a k-mer to match. [4]")
     _add_device(sc)
-
-    for name in NOT_PORTED:
-        sub.add_parser(name, add_help=False,
-                       help="(not ported to krepp_tpu_torch yet)")
     return p
 
 
@@ -176,14 +187,7 @@ def main(argv=None) -> int:
           f"(reference-compatible: krepp {REFERENCE_VERSION})",
           file=sys.stderr)
     parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd in NOT_PORTED:
-        print(f"`{args.cmd}` is not ported to krepp_tpu_torch yet (ROADMAP "
-              f"{NOT_PORTED[args.cmd]}); use `python -m krepp_tpu "
-              f"{args.cmd}`.", file=sys.stderr)
-        return 2
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     inv = _invocation()
     t0 = time.time()
     print(f"Invocation: {inv}", file=sys.stderr)
@@ -199,8 +203,9 @@ def main(argv=None) -> int:
                         torch.profiler.ProfilerActivity.CUDA],
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 args.trace_dir))
-    commands = {"dist": cmd_dist, "place": cmd_place, "seek": cmd_seek,
-                "sketch": cmd_sketch, "inspect": cmd_inspect}
+    commands = {"index": cmd_index, "dist": cmd_dist, "place": cmd_place,
+                "seek": cmd_seek, "sketch": cmd_sketch,
+                "inspect": cmd_inspect}
     with trace:
         commands[args.cmd](args, inv)
     print(f"Done, elapsed: {time.time() - t0:.2f} sec", file=sys.stderr)
@@ -210,8 +215,57 @@ def main(argv=None) -> int:
 def _refuse_mesh(args):
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: the sharded engines are not ported to krepp_tpu_torch "
-            "yet (ROADMAP Queue 1, slice 7)")
+            "--mesh: the sharded build and engines are not ported to "
+            "krepp_tpu_torch yet (ROADMAP Queue 1, slice 7)")
+
+
+def _make_params(args):
+    from .params import IndexParams, LSHParams, validate_lsh_config
+
+    k = args.kmer_len
+    w = args.win_len if args.win_len is not None else k + 6
+    h = args.num_positions if args.num_positions is not None else k - 16
+    validate_lsh_config(k, h, w)
+    return IndexParams(lsh=LSHParams.generate(k, h, args.modulo_lsh,
+                                              seed=args.seed),
+                       w=w, r=args.residue_lsh, frac=args.frac,
+                       sdust_t=args.sdust_t, sdust_w=args.sdust_w)
+
+
+def cmd_index(args, inv):
+    from .index import artifact
+    from .index.build import build_index
+    from .tree.newick import Tree
+
+    _refuse_mesh(args)
+    params = _make_params(args)
+    input_map = []
+    with open(args.input_file) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) < 2:
+                if line.strip():
+                    raise SystemExit(
+                        "Failed to read the reference name to path/URL "
+                        "mapping!")
+                continue
+            input_map.append((parts[0], parts[1]))
+    tree = None
+    if args.nwk_file:
+        with open(args.nwk_file) as f:
+            nwk = f.read()
+        tree = Tree.parse(nwk)
+        tree.nwk_str = nwk
+    print("Building the index...", file=sys.stderr)
+    built = build_index(input_map, params, tree,
+                        num_threads=max(1, args.num_threads))
+    print(f"\nTotal number of k-mers indexed: {built.nkmers}",
+          file=sys.stderr)
+    artifact.save_native(built, args.index_dir, seed=args.seed or 0,
+                         partial=args.partial)
+    if args.export_reference_format:
+        artifact.save_index_reference(built, args.index_dir,
+                                      seed=args.seed or 0)
 
 
 def cmd_dist(args, inv):
@@ -281,20 +335,10 @@ def cmd_inspect(args, inv):
 
 
 def cmd_sketch(args, inv):
-    from .params import IndexParams, LSHParams, validate_lsh_config
-
     from .index.artifact import save_sketch_reference
     from .index.build import build_sketch
 
-    k = args.kmer_len
-    w = args.win_len if args.win_len is not None else k + 6
-    h = args.num_positions if args.num_positions is not None else k - 16
-    validate_lsh_config(k, h, w)
-    params = IndexParams(lsh=LSHParams.generate(k, h, args.modulo_lsh,
-                                                seed=args.seed),
-                         w=w, r=args.residue_lsh, frac=args.frac,
-                         sdust_t=args.sdust_t, sdust_w=args.sdust_w)
-    save_sketch_reference(build_sketch(args.input_file, params),
+    save_sketch_reference(build_sketch(args.input_file, _make_params(args)),
                           args.output_path)
 
 

@@ -5,7 +5,7 @@ JAX-free copy of krepp_tpu/index/build.py (its module imports the device
 winnower and the sdust extractor, which import JAX). Winnowing goes only
 through the repo's native C winnower, loaded by the port's
 core/native_extract.py; the device winnower and sdust-masked extraction
-raise until ROADMAP slice 6 ports them. The merge, dedupe and coloring
+raise until ROADMAP Queue 1 item 12 ports them. The merge, dedupe and coloring
 are the reference's numpy and C code, so a build here is field-for-field
 the JAX package's build.
 """
@@ -48,6 +48,15 @@ class BuiltIndex:
     def nkmers(self) -> int:
         return len(self.enc_v)
 
+    def dense_inc(self) -> np.ndarray:
+        """The dense offset array (materialised on demand for the
+        reference's binary format, which stores one u64 per row)."""
+        if self.inc is not None:
+            return self.inc
+        counts = np.bincount(self.rows_local,
+                             minlength=self.params.nrows_local)
+        return np.cumsum(counts).astype(np.int64)
+
 
 @dataclass
 class BuiltSketch:
@@ -72,11 +81,11 @@ def _extract_genome(contigs, params: IndexParams):
     if params.sdust_t > 0 and params.sdust_w > 0:
         raise NotImplementedError(
             "sdust-masked extraction is not ported to krepp_tpu_torch yet "
-            "(ROADMAP Queue 1, slice 6)")
+            "(ROADMAP Queue 1, item 12)")
     if not native_extract.window_fits(params):
         raise NotImplementedError(
             "w - k + 1 exceeds the native C winnower's window and device "
-            "winnowing is not ported yet (ROADMAP Queue 1, slice 6)")
+            "winnowing is not ported yet (ROADMAP Queue 1, item 12)")
     return native_extract.extract_genome_mers_native(contigs, params)
 
 

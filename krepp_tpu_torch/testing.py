@@ -7,7 +7,8 @@ and index in both packages.
 
 from __future__ import annotations
 
-from typing import Dict, List
+import os
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -73,6 +74,29 @@ def build_world_index(seed=0, nleaves=6, glen=2000, rate=0.05,
     built = build_index_from_sources(names, sources, params, tree,
                                      progress=False, num_threads=num_threads)
     return built, genomes, tree
+
+
+def write_world_files(root: str, nwk: str,
+                      genomes_codes: Dict[str, List[np.ndarray]]
+                      ) -> Tuple[str, str]:
+    """A code world as the `index` command reads it: one FASTA file per
+    genome, the name -> path TSV and the Newick tree, all under root.
+    Returns (TSV path, tree path)."""
+    os.makedirs(root, exist_ok=True)
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    map_path = os.path.join(root, "map.tsv")
+    with open(map_path, "w") as m:
+        for name in sorted(genomes_codes):
+            path = os.path.join(root, f"{name}.fna")
+            with open(path, "wb") as f:
+                for i, contig in enumerate(genomes_codes[name]):
+                    f.write(f">{name}_c{i}\n".encode()
+                            + acgt[contig].tobytes() + b"\n")
+            m.write(f"{name}\t{path}\n")
+    tree_path = os.path.join(root, "tree.nwk")
+    with open(tree_path, "w") as f:
+        f.write(nwk + "\n")
+    return map_path, tree_path
 
 
 def write_fastq(path: str, codes: np.ndarray, prefix: str = "r") -> None:

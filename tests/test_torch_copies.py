@@ -1,5 +1,7 @@
 """The port's own copies of krepp_tpu's host modules (params, stdrand,
-reports, tree, colors, hll, native_sort, native_colorize, io.native): the
+reports, tree, colors, hll, native_sort, native_colorize, io.native, and
+the small helpers of index.artifact; its save / load functions are held
+equal on whole directories in test_torch_cli_index.py): the
 same numpy-seeded inputs through the original and the copy, exact equality
 (these are integer and string functions; fmt5 output compared as strings).
 """
@@ -245,6 +247,73 @@ def test_color_builder_and_table_match():
     pse[jc.nnodes + 3] = (jc.nnodes, jc.nnodes + 2)
     _flat_equal(jcolors.colors_from_pse(jc.nnodes, pse, jf, rho),
                 colors.colors_from_pse(tc.nnodes, pse, tf, rho))
+
+
+# ---------------------------------------------------------- index.artifact
+def _index_params(mod, seed, r=1, frac=True):
+    return mod.IndexParams(lsh=mod.LSHParams.generate(27, 11, 4, seed=seed),
+                           w=35, r=r, frac=frac)
+
+
+@pytest.mark.parametrize("r,frac", [(1, True), (0, False), (3, False),
+                                    (2, True)])
+def test_artifact_info_blocks_and_residues_match(r, frac):
+    from krepp_tpu.index import artifact as jartifact
+    from krepp_tpu_torch.index import artifact
+
+    jp, tp = _index_params(jparams, 5, r, frac), _index_params(params, 5, r,
+                                                               frac)
+    assert jartifact._fallback_info(jp, 4096, 777) == \
+        artifact._fallback_info(tp, 4096, 777)
+    meta = {"seed": 5, "nrows": 4096, "nkmers": 777}
+    assert jartifact._native_info(meta, jp) == artifact._native_info(meta, tp)
+    assert jartifact._native_info({"nrows": 1, "nkmers": 2}, jp) == \
+        artifact._native_info({"nrows": 1, "nkmers": 2}, tp)
+    assert list(jartifact._partial_residues(jp)) == \
+        list(artifact._partial_residues(tp))
+    assert jp.suffix == tp.suffix
+
+
+def test_artifact_directory_scans_and_compatibility_match(tmp_path):
+    from krepp_tpu.index import artifact as jartifact
+    from krepp_tpu_torch.index import artifact
+
+    for name in ("cmer-m4r1-frac", "inc-m4r1-frac", "metadata-m4r1-frac",
+                 "metadata-m4r1-frac.txt", "crecord-m4r0-no_frac",
+                 "tree-m4r0-no_frac", "reflist-m4r1-frac", "notes-x",
+                 "meta-m4r0-no_frac.json", "meta-m4r1-no_frac.json",
+                 "meta.json", "arrays-m4r0-no_frac.npz", "plain"):
+        (tmp_path / name).write_bytes(b"")
+    want = jartifact._scan_reference_dir(str(tmp_path))
+    assert artifact._scan_reference_dir(str(tmp_path)) == want
+    assert want == {"-m4r1-frac": {"cmer", "inc", "metadata", "reflist"},
+                    "-m4r0-no_frac": {"crecord", "tree"}}
+    assert artifact._scan_native_partials(str(tmp_path)) == \
+        jartifact._scan_native_partials(str(tmp_path)) == \
+        ["-m4r0-no_frac", "-m4r1-no_frac"]
+    for mod, art in ((jparams, jartifact), (params, artifact)):
+        same = [_index_params(mod, 5, 0, False), _index_params(mod, 5, 1,
+                                                               False)]
+        art._check_partials_compatible(same)
+        with pytest.raises(ValueError, match="Partial libraries have "
+                                             "incompatible hash functions!"):
+            art._check_partials_compatible(same + [_index_params(mod, 6)])
+
+
+def test_built_index_dense_inc_matches():
+    from krepp_tpu.index.build import BuiltIndex as JBuiltIndex
+    from krepp_tpu_torch.index.build import BuiltIndex
+
+    rng = np.random.default_rng(12)
+    jp, tp = _index_params(jparams, 5), _index_params(params, 5)
+    rows = np.sort(rng.integers(0, jp.nrows_local, 500)).astype(np.int64)
+    kw = dict(tree=None, names=[], enc_v=np.zeros(500, np.uint32),
+              se_v=np.zeros(500, np.int32), colors=None, ftree=None)
+    want = JBuiltIndex(params=jp, inc=None, rows_local=rows, **kw).dense_inc()
+    got = BuiltIndex(params=tp, inc=None, rows_local=rows, **kw).dense_inc()
+    assert want.dtype == got.dtype and np.array_equal(want, got)
+    assert len(got) == tp.nrows_local and got[-1] == 500
+    assert BuiltIndex(params=tp, inc=got, **kw).dense_inc() is got
 
 
 # --------------------------------------------------------------------- hll

@@ -158,7 +158,20 @@ def test_cli_dist_on_cpu_prints_the_reference_framing(world):
 
 
 def test_cli_unported_subcommand_exits_with_a_message(world):
-    _, _, _, d = world
-    out = _cli(d, "index", "-i", "map.tsv", "-o", "idx2")
-    assert out.returncode == 2
-    assert "not ported" in out.stderr and "slice 6" in out.stderr
+    """Every subcommand of krepp_tpu is ported: `index` builds (it used to
+    exit 2), and only a command that neither package has exits 2."""
+    _, _, qpath, d = world
+    with open(os.path.join(d, "map.tsv"), "w") as f:
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".fna"):
+                f.write(f"{name[:-4]}\t{name}\n")
+    out = _cli(d, "index", "-i", "map.tsv", "-o", "idx2", "-k", "27", "-h",
+               "11", "-m", "2")
+    assert out.returncode == 0, out.stderr
+    assert "Total number of k-mers indexed: " in out.stderr
+    assert "krepp_tpu " not in out.stderr
+    assert os.path.exists(os.path.join(d, "idx2", "meta.json"))
+    out = _cli(d, "dist", "-q", qpath, "-i", "idx2", "--device", "cpu")
+    assert out.returncode == 0 and len(out.stdout.splitlines()) > 2
+    out = _cli(d, "reindex", "-i", "map.tsv", "-o", "idx3")
+    assert out.returncode == 2 and "invalid choice" in out.stderr

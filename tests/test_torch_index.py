@@ -126,17 +126,27 @@ def test_from_reference_carries_wide_indexes(nleaves, W):
     _assert_device_index_equal(ref, got)
 
 
-def test_multi_partial_and_reference_formats_raise(tmp_path):
-    multi = tmp_path / "multi"
-    multi.mkdir()
-    (multi / "meta-m4r1-frac.json").write_text("{}")
-    with pytest.raises(NotImplementedError):
-        artifact.load_index(str(multi))
-    ref = tmp_path / "ref"
-    ref.mkdir()
-    (ref / "cmer-m4r1-frac").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        artifact.load_index(str(ref))
+def test_multi_partial_and_reference_formats_raise(world, tmp_path):
+    """Both forms load (they used to raise NotImplementedError); what
+    still raises is a broken directory, with the reference's error."""
+    _, jb, tb = world
+    multi, ref = str(tmp_path / "multi"), str(tmp_path / "ref")
+    artifact.save_native(tb, multi, partial=True)
+    artifact.save_index_reference(tb, ref)
+    want = JDeviceIndex.from_built(jb)
+    for d, jload in ((multi, jartifact.load_native_device),
+                     (ref, jartifact.load_index_reference)):
+        got = artifact.load_index(d)
+        for f in ("resident", "row_start", "enc_v", "rho_slot", "row_ids"):
+            assert _same(getattr(want, f), getattr(got, f)), f
+        _assert_device_index_equal(jload(d), got)
+    os.remove(os.path.join(ref, "inc" + tb.params.suffix))
+    for load in (jartifact.load_index_reference, artifact.load_index):
+        with pytest.raises(ValueError, match="partial index with a missing "
+                                             "file"):
+            load(ref)
+    with pytest.raises(FileNotFoundError, match="No reference-format"):
+        artifact.load_index(str(tmp_path))
 
 
 _BLOCK_JAX = r"""

@@ -1,5 +1,6 @@
 """Port `inspect` vs krepp_tpu's: the same text on a native index, through
-the functions and both CLIs; a reference-format directory still raises."""
+the functions and both CLIs; a reference-format directory prints the
+reference's text too, and a broken one is refused as the reference does."""
 
 import io
 import os
@@ -51,7 +52,22 @@ def test_cli_inspect_matches_the_reference_cli(index_dir, capsys):
     assert got == want.stdout and len(got.splitlines()) > 10
 
 
-def test_cli_inspect_refuses_a_reference_format_index(tmp_path):
+def test_cli_inspect_refuses_a_reference_format_index(tmp_path, capsys):
+    """Only a broken reference-format directory is refused, with the
+    reference's text; a whole one prints the binary color graph's
+    OUTDEGREE histogram as krepp_tpu does."""
     (tmp_path / "cmer-m4r1-frac").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="reference-format"):
+    with pytest.raises(ValueError, match="partial index with a missing file"):
         cli.main(["inspect", "-i", str(tmp_path)])
+    built, _, _ = build_world_index(seed=3, nleaves=12, glen=3000, m=4)
+    ref = str(tmp_path / "ref")
+    artifact.save_index_reference(built, ref, seed=0)
+    capsys.readouterr()
+    assert cli.main(["inspect", "-i", ref]) == 0
+    got = capsys.readouterr().out
+    want = io.StringIO()
+    jdi = jartifact.load_index_reference(ref)
+    assert jdi.se_pse is not None
+    jdisplay_info(jdi, want)
+    assert got == want.getvalue()
+    assert got.count("======= Partial index:") == 2 and "seed: 0\n" in got

@@ -42,6 +42,33 @@ def test_ref_matches_the_numpy_gather(nrows, width, n, rows):
     assert np.array_equal(got.numpy().view(np.uint32), tab[idx])
 
 
+# the tiling's edges: rows_per_block at its ends and off a power of two, n
+# below one tile, blocks whose run of the output starts off a 16-byte line
+# (odd rows x width), the largest tile (1024 rows x 9 words), a row of more
+# words than a block has threads
+EDGE_SHAPES = [
+    (512, 1, 700, 1), (512, 1, 700, 3), (512, 1, 5000, 1024),
+    (512, 4, 700, 1), (512, 4, 700, 3), (512, 4, 5000, 1024),
+    (512, 5, 700, 1), (512, 5, 700, 3), (512, 5, 5000, 1024),
+    (512, 9, 700, 1), (512, 9, 700, 3), (512, 9, 5000, 1024),
+    (512, 5, 100, 256), (512, 5, 1, 1024), (16, 4099, 37, 256),
+    (16, 9000, 5, 3),
+]
+
+
+@pytest.mark.parametrize("nrows,width,n,rows", EDGE_SHAPES)
+def test_tiling_never_changes_the_result(nrows, width, n, rows):
+    """rows_per_block is a hint: the plain version and the host wrapper
+    give tab[idx] whatever it is."""
+    rng = np.random.default_rng(nrows * 7 + width * 5 + n * 3 + rows)
+    tab, idx = _inputs(rng, nrows, width, n)
+    want = tab[idx]
+    for fn in (kernels.dma_gather_ref, kernels.dma_gather):
+        got = fn(*_t(tab, idx), rows)
+        assert got.dtype == torch.int32 and got.shape == (n, width)
+        assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
 def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch():
     rng = np.random.default_rng(1)
     args = _t(*_inputs(rng, 2048, 5, 3000))
@@ -96,11 +123,40 @@ def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the chip)")
     rng = np.random.default_rng(5)
-    for nrows, width, n, rows in [(2 << 20, 5, 1 << 20, 256),
-                                  (2 << 20, 5, 1000003, 512),
-                                  (1000, 1, 777, 256), (5000, 9, 4099, 1),
-                                  (100, 5, 0, 256)]:
+    before, launched = kernels.dma_gather.launches, 0
+    shapes = [(2 << 20, 5, 1 << 20, 256), (2 << 20, 5, 1000003, 512),
+              (1000, 1, 777, 256), (5000, 9, 4099, 1),
+              (100, 5, 0, 256)] + EDGE_SHAPES
+    for nrows, width, n, rows in shapes:
         tab, idx = (a.cuda() for a in _t(*_inputs(rng, nrows, width, n)))
         got = kernels.dma_gather(tab, idx, rows)
         torch.cuda.synchronize()
-        assert torch.equal(got, kernels.dma_gather_ref(tab, idx, rows))
+        assert torch.equal(got, kernels.dma_gather_ref(tab, idx, rows)), \
+            (nrows, width, n, rows)
+        launched += n > 0
+    assert kernels.dma_gather.launches == before + launched
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_traps_on_an_index_out_of_range():
+    """Run last in its process: a trap leaves the CUDA context unusable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip)")
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from krepp_tpu_torch.query import kernels\n"
+            "tab = torch.zeros((64, 5), dtype=torch.int32, device='cuda')\n"
+            "idx = torch.zeros((1000,), dtype=torch.int32, device='cuda')\n"
+            "kernels.dma_gather(tab, idx)\n"
+            "torch.cuda.synchronize()\n"
+            "idx[777] = 64\n"
+            "kernels.dma_gather(tab, idx)\n"
+            "try:\n"
+            "    torch.cuda.synchronize()\n"
+            "except Exception as e:\n"
+            "    print('TRAPPED', type(e).__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert "TRAPPED" in out.stdout, out.stdout + out.stderr

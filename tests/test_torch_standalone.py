@@ -1,7 +1,9 @@
 """The port stands alone: no module of krepp_tpu_torch (nor chip_smoke.py)
 imports `krepp_tpu` or `jax`, a process in which both are blocked imports
-every port module and runs a small world end to end on the CPU, and the C
-sources the port compiles are byte-identical to the reference's."""
+every port module, builds a small world through the port's `index`
+command and runs it end to end on the CPU, the C sources the port compiles
+are byte-identical to the reference's, and the distribution declares the
+port's own command."""
 
 import ast
 import os
@@ -70,16 +72,15 @@ for m in pkgutil.walk_packages(krepp_tpu_torch.__path__, "krepp_tpu_torch."):
     mods.append(m.name)
 
 from krepp_tpu_torch import cli, testing
-from krepp_tpu_torch.index.artifact import save_native
 
-built, genomes, tree = testing.build_world_index(seed=3, nleaves=5, glen=1500,
-                                                 k=27, h=11, m=2)
-save_native(built, "idx")
+acgt = np.frombuffer(b"ACGT", np.uint8)
+nwk, genomes = testing.make_world_codes(np.random.default_rng(3), nleaves=5,
+                                        glen=1500, rate=0.05)
+testing.write_world_files(".", nwk, genomes)
 reads = testing.sample_read_codes(np.random.default_rng(4), genomes, 12)
 testing.write_fastq("q.fq", reads)
 with open("g0.fna", "wb") as f:
-    f.write(b">g0\n" + np.frombuffer(b"ACGT", np.uint8)[genomes["G000"][0]]
-            .tobytes() + b"\n")
+    f.write(b">g0\n" + acgt[genomes["G000"][0]].tobytes() + b"\n")
 
 def run(argv):
     out = io.StringIO()
@@ -89,14 +90,27 @@ def run(argv):
     assert rc in (0, None), (argv, rc)
     return out.getvalue()
 
+run(["index", "-i", "map.tsv", "-o", "idx", "-t", "tree.nwk", "-k", "27",
+     "-h", "11", "-m", "2", "--export-reference-format"])
+run(["index", "-i", "map.tsv", "-o", "parts", "-t", "tree.nwk", "-k", "27",
+     "-h", "11", "-m", "2", "--no-frac", "-r", "0", "--partial"])
+run(["index", "-i", "map.tsv", "-o", "parts", "-t", "tree.nwk", "-k", "27",
+     "-h", "11", "-m", "2", "--no-frac", "-r", "1", "--partial"])
+os.mkdir("ref")
+for name in os.listdir("idx"):
+    if "-m2r1-frac" in name:
+        os.link(os.path.join("idx", name), os.path.join("ref", name))
 dist = run(["dist", "-q", "q.fq", "-i", "idx", "--device", "cpu"])
+same = [run(["dist", "-q", "q.fq", "-i", d, "--device", "cpu"])
+        .splitlines()[1:] == dist.splitlines()[1:] for d in ("parts", "ref")]
 place = run(["place", "-q", "q.fq", "-i", "idx", "--device", "cpu"])
 run(["sketch", "-i", "g0.fna", "-o", "g0.sk", "-k", "26"])
 seek = run(["seek", "-q", "q.fq", "-i", "g0.sk", "--device", "cpu"])
 inspect = run(["inspect", "-i", "idx"])
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 print(json.dumps(dict(
-    modules=len(mods), loaded=loaded,
+    modules=len(mods), loaded=loaded, same=same,
+    files=sorted(os.listdir("idx")),
     dist_rows=len(dist.splitlines()) - 2, dist_head=dist.splitlines()[1],
     placements=len(json.loads(place)["placements"]),
     seek_rows=len(seek.splitlines()) - 2,
@@ -118,3 +132,17 @@ def test_port_runs_end_to_end_with_the_reference_and_jax_blocked(tmp_path):
     assert got["dist_rows"] >= 12 and got["placements"] >= 6
     assert got["seek_rows"] == 12 and got["seek_found"] >= 1
     assert got["inspect_head"] == "Backbone tree: "
+    assert got["same"] == [True, True]
+    assert {"meta.json", "arrays.npz", "tree.nwk", "reflist.txt",
+            "cmer-m2r1-frac", "crecord-m2r1-frac"} <= set(got["files"])
+
+
+def test_the_distribution_declares_the_port_command():
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)["project"]
+    assert project["scripts"]["krepp-tpu-torch"] == "krepp_tpu_torch.cli:main"
+    assert project["scripts"]["krepp-tpu"] == "krepp_tpu.cli:main"
+    assert any(d.split(">")[0].split("=")[0].strip() == "torch"
+               for d in project["optional-dependencies"]["torch"])
