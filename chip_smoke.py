@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of krepp_tpu_torch (the PyTorch/CUDA port) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py        # needs one card
 
-Drives the port's paths, `index`, `dist` and `place` through its CLI on
-generated worlds and the probe microbenchmark, and checks them:
+Drives the port's paths, `index`, `sketch`, `dist`, `place` and `seek`
+through its CLI on generated worlds and the probe microbenchmark, and
+checks them:
 
   1. device: CUDA must be available; prints the card and its power limit;
      `krepp_tpu` and `jax` are blocked from import for the whole run, and
@@ -89,12 +90,36 @@ generated worlds and the probe microbenchmark, and checks them:
      8,192 base reads: the rows of phase 5's base run for those reads
      (same reads, same references, distances within 1e-5); inspect of the
      reference-format directory prints the binary color graph's
-     OUTDEGREE histogram.
+     OUTDEGREE histogram;
+ 21. (last) none of jax, jaxlib, krepp_tpu in sys.modules;
+ 22. the int64 pieces of the build path on the card against the host's on
+     2^20 random inputs, equal element for element: `xur64` (a multiply
+     that must wrap mod 2^64), `bp64` at k = 27 and k = 32 (the sign bit)
+     and the HyperLogLog ranks;
+ 23. base through the device winnower: `index` through the CLI with
+     KREPP_DEVICE_WINNOW=1 --device cuda on phase 4's FASTA files: the
+     directory of phase 4 (the C winnower), file for file; twice, between
+     two more C-winnower builds, k-mers/s of each, peak device memory; one
+     genome winnowed under the profiler (launches and device time a tile);
+ 24. the chunked path: `sketch` of phase 18's 5 Mbp genome (five tiles of
+     2^20 bases) through the device winnower: phase 18's file, byte for
+     byte; seconds and peak device memory;
+ 25. `index --mesh 1 --device cuda` on base (and `--mesh N` where the
+     machine has N > 1 cards): phase 4's directory again; one card too many
+     raises naming the count;
+ 26. sdust: 8 genomes x 50 kbp with planted homopolymers and tandem
+     repeats, `index --sdust-t 20 --sdust-w 64` with --device cuda and with
+     --device cpu: the same directory; k-mers masked against the unmasked
+     build;
+ 27. a window wider than the C winnower's (w = 4200, ldiff 4174) on two
+     1 Mbp genomes (one tile each, 13 doubling passes, some hundreds of
+     k-mers), --device cuda against --device cpu: the same directory.
 
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
 before the last is the kernels JSON (launches: counted over the CLI runs on
 cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18 and 20, and for dma_gather
-over the microbenchmark of phase 12; ms, plain_ms, bound_ms and library_ms
+over the microbenchmark of phase 12; the build path of phases 22-27 runs
+torch ops and no hand-written kernel, which phases 23-27 check; ms, plain_ms, bound_ms and library_ms
 at the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b,
 dma_gather's cold_ms and cold_bound_ms on the [32M x 5] table and its
 launcher_ms through the bare launcher);
@@ -137,6 +162,13 @@ MANY_READS = 65536
 SEEK_SEED = 19
 SEEK_GLEN = 5_000_000
 SEEK_READS = 65536
+SEEK_KMERS = 624980                           # PERF.md section 4
+SDUST = dict(seed=23, nleaves=8, glen=50_000, rate=0.05, k=27, h=11, w=35,
+             m=4)
+SDUST_FLAGS = ["--sdust-t", "20", "--sdust-w", "64"]   # NCBI dustmasker's
+WINDOW = dict(seed=29, nleaves=2, glen=1_000_000, rate=0.05, k=27, h=11,
+              w=4200, m=4)            # w - k + 1 = 4174 > the C winnower's 4096
+WINDOW_KMERS = 498
 LONG_READS = 4096
 LONG_LEN = 400
 CPU_READS = 2048
@@ -486,8 +518,9 @@ def make_world(cfg: dict, root: str, tag: str):
 
 
 def index_cli(argv, seed: int, threads: int):
-    """`index` through cli.main in this process (it runs on the host and
-    takes no --device); returns (k-mers indexed, seconds)."""
+    """`index` through cli.main in this process (on the host with the C
+    winnower unless argv or KREPP_DEVICE_WINNOW ask for a device path);
+    returns (k-mers indexed, seconds)."""
     from krepp_tpu_torch import cli
 
     err = io.StringIO()
@@ -500,6 +533,69 @@ def index_cli(argv, seed: int, threads: int):
     said = re.search(r"Total number of k-mers indexed: (\d+)", err.getvalue())
     check(said is not None, "index did not print its k-mer count")
     return int(said.group(1)), dt
+
+
+@contextlib.contextmanager
+def device_winnower():
+    """KREPP_DEVICE_WINNOW=1 (the variable krepp_tpu reads) for the block:
+    `index` and `sketch` winnow on --device instead of in C."""
+    os.environ["KREPP_DEVICE_WINNOW"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["KREPP_DEVICE_WINNOW"]
+
+
+@contextlib.contextmanager
+def no_kernel_launched(n, what: str):
+    """The build path runs torch ops only: no hand-written kernel may be
+    launched inside the block, and it must have allocated on the card (the
+    C winnower would not). Prints the peak device memory of the block."""
+    import torch
+
+    from krepp_tpu_torch.query import kernels
+
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    yield
+    torch.cuda.synchronize()
+    counts = {name: getattr(kernels, name).launches for name in KERNELS}
+    check(not any(counts.values()), f"{what} launched {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak > 0, f"{what} allocated nothing on the card")
+    phase(n, f"{what}: peak device memory {peak / 2 ** 30:.3f} GiB, no "
+             f"hand-written kernel launched")
+
+
+def same_directory(n, label: str, want_dir: str, got_dir: str):
+    """Two index directories hold the same files: each byte for byte,
+    except that an .npz (a zip, whose bytes could differ in its headers)
+    that differs in bytes must hold the same arrays with the same dtypes."""
+    import filecmp
+
+    import numpy as np
+
+    names = sorted(os.listdir(want_dir))
+    check(names == sorted(os.listdir(got_dir)),
+          f"{label}: {sorted(os.listdir(got_dir))} != {names}")
+    by_bytes = 0
+    for name in names:
+        a, b = os.path.join(want_dir, name), os.path.join(got_dir, name)
+        if filecmp.cmp(a, b, shallow=False):
+            by_bytes += 1
+            continue
+        check(name.endswith(".npz"), f"{label}: {name} differs")
+        za, zb = np.load(a), np.load(b)
+        check(sorted(za.files) == sorted(zb.files),
+              f"{label}: {name} holds other arrays")
+        for key in za.files:
+            check(za[key].dtype == zb[key].dtype
+                  and np.array_equal(za[key], zb[key]),
+                  f"{label}: {name}[{key}] differs")
+    phase(n, f"{label}: {len(names)} files identical ({by_bytes} byte for "
+             f"byte, {len(names) - by_bytes} array for array)")
 
 
 def lsh_flags(cfg: dict):
@@ -1024,6 +1120,255 @@ def round_trips(n: int, root: str, files, fq: str, base_out: str, nk: int,
           "inspect of the reference-format index has no OUTDEGREE rows")
 
 
+def int64_pieces(n: int):
+    """Phase 22: xur64, bp64 and the HLL ranks on the card against the
+    host's, 2^20 random inputs each, equal element for element."""
+    import numpy as np
+    import torch
+
+    from krepp_tpu_torch.core import codec, minimizer, winnow_device
+
+    rng = np.random.default_rng(22)
+    N = 1 << 20
+    h = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, N))
+    h[:4] = torch.tensor([0, -1, 2 ** 63 - 1, -2 ** 63])
+    want = minimizer.xur64(h)
+    got = minimizer.xur64(h.cuda()).cpu()
+    check(torch.equal(want, got), "xur64 on the card != the host's")
+    check(int(want[0]) == 0 and len(torch.unique(want)) == len(
+        torch.unique(h)), "xur64 is not the bijection it should be")
+    key = minimizer.ordered_u64(got)
+    check(torch.equal(minimizer.less_u64(h.cuda(), got.cuda()).cpu(),
+                      minimizer.ordered_u64(h) < key),
+          "the unsigned compare on the card != the host's")
+    for k in (27, 32):
+        codes = torch.from_numpy(rng.choice(
+            5, size=N + k - 1, p=[0.2475] * 4 + [0.01]).astype(np.uint8))
+        codes[:k] = 3                                   # every bit set
+        want = codec.bp64(codes, k)
+        got = codec.bp64(codes.cuda(), k).cpu()
+        check(torch.equal(want, got) and want.shape == (N,),
+              f"bp64 k={k} on the card != the host's")
+        check(int(got[0]) == (4 ** k - 1 if k < 32 else -1),
+              f"bp64 k={k} of the all-T k-mer is {int(got[0])}")
+    zlo = torch.from_numpy(rng.integers(0, 2 ** 32, N))
+    zlo[:4] = torch.tensor([0, 1, 0xFFFFF, 0x100000])
+    want = winnow_device._hll_ranks(zlo)
+    got = winnow_device._hll_ranks(zlo.cuda())
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(want, got)),
+          "HLL ranks on the card != the host's")
+    check(want[1][:4].tolist() == [21, 20, 1, 21]
+          and int(want[1].min()) == 1 and int(want[1].max()) == 21,
+          f"HLL ranks {want[1][:4].tolist()}")
+    mask = torch.from_numpy(rng.random(N) < 0.5)
+    check(torch.equal(
+        winnow_device._hll_registers(zlo[None], mask[None]),
+        winnow_device._hll_registers(zlo[None].cuda(),
+                                     mask[None].cuda()).cpu()),
+        "HLL registers (scatter amax) on the card != the host's")
+    phase(n, f"xur64, the unsigned compare, bp64 (k = 27, 32), HLL ranks and "
+             f"registers: card == host on {N} inputs each")
+
+
+def profile_one_genome(n: int, genome, card: str):
+    """One base genome through the device winnower under torch.profiler:
+    launches and device time of its one batch of tiles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from krepp_tpu_torch.core import winnow_device
+    from krepp_tpu_torch.params import IndexParams, LSHParams
+
+    params = IndexParams(lsh=LSHParams.generate(BASE["k"], BASE["h"],
+                                                BASE["m"], seed=BASE["seed"]),
+                         w=BASE["w"], r=1, frac=True)
+    winnow_device.extract_sequence_mers_device(genome, params, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rows, _, _, _ = winnow_device.extract_sequence_mers_device(
+            genome, params, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    t0 = time.perf_counter()
+    winnow_device.extract_sequence_mers_device(genome, params, "cuda")
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    phase(n, f"one {len(genome)}-base genome, one tile: {len(rows)} unique "
+             f"pairs, {launches} cudaLaunchKernel, {busy:.3f} ms device "
+             f"time, {wall * 1e3:.1f} ms wall under the profiler, "
+             f"{bare * 1e3:.1f} ms without it, on {card}")
+    top = sorted((e for e in events if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    for e in top:
+        phase(n, f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                 f"x{e.count:<6d} {e.key[:90]}")
+
+
+def device_winnowed_base(n: int, root: str, files, idx: str, genome,
+                         card: str):
+    """Phase 23: base through `index` with the device winnower, between two
+    more builds with the C winnower (C, device, device, C): phase 4's
+    directory each time, k-mers/s of each."""
+    threads = os.cpu_count() or 1
+    argv = ["-i", files[0], "-t", files[1]] + lsh_flags(BASE)
+    rates = {}
+    for tag in ("c1", "device1", "device2", "c2"):
+        out = os.path.join(root, f"idx_base_{tag}")
+        if tag.startswith("device"):
+            with device_winnower(), no_kernel_launched(
+                    n, f"`index`, device winnower ({tag[-1]})"):
+                nk, dt = index_cli(argv + ["-o", out, "--device", "cuda"],
+                                   BASE["seed"], threads)
+        else:
+            nk, dt = index_cli(argv + ["-o", out], BASE["seed"], threads)
+        check(nk == BASE_KMERS, f"{tag} built {nk} k-mers, want {BASE_KMERS}")
+        same_directory(n, f"{tag} vs phase 4's directory", idx, out)
+        rates[tag] = nk / dt
+        phase(n, f"{tag}: {nk} k-mers in {dt:.3f} s, {nk / dt:.1f} k-mers/s "
+                 f"(--num-threads {threads}) on {card}")
+    phase(n, f"device winnower / C winnower k-mers/s in this call: "
+             f"{rates['device2'] / rates['c2']:.3f} (second builds), "
+             f"{rates['device1'] / rates['c1']:.3f} (first builds)")
+    profile_one_genome(n, genome, card)
+
+
+def device_winnowed_sketch(n: int, root: str, sk: str, card: str):
+    """Phase 24: phase 18's genome sketched through the device winnower
+    (five tiles of 2^20 bases, one batch): phase 18's file."""
+    import filecmp
+
+    from krepp_tpu_torch import cli
+
+    fa = os.path.join(root, "target.fna")
+    out = os.path.join(root, "target_device.sk")
+    err = io.StringIO()
+    with device_winnower(), no_kernel_launched(
+            n, "`sketch`, device winnower"), contextlib.redirect_stderr(err):
+        t0 = time.time()
+        rc = cli.main(["sketch", "-i", fa, "-o", out, "--device", "cuda"])
+        dt = time.time() - t0
+    check(rc == 0, f"sketch returned {rc}")
+    kmers = re.search(r"included in the sketch: (\d+)", err.getvalue())
+    check(kmers is not None and int(kmers.group(1)) == SEEK_KMERS,
+          f"the device-winnowed sketch holds {kmers and kmers.group(1)} "
+          f"k-mers, want {SEEK_KMERS}")
+    check(filecmp.cmp(sk, out, shallow=False),
+          "the device-winnowed sketch differs from the C winnower's")
+    phase(n, f"`sketch` of the {SEEK_GLEN}-bp genome through the device "
+             f"winnower: {SEEK_KMERS} k-mers, the C winnower's file byte for "
+             f"byte, {dt:.2f} s on {card}")
+
+
+def mesh_base(n: int, root: str, files, idx: str, card: str):
+    """Phase 25: `index --mesh 1 --device cuda` on base and, on a machine
+    with more cards, `--mesh <all of them>`: phase 4's directory; one card
+    more than the machine has must raise naming the count."""
+    import torch
+
+    have = torch.cuda.device_count()
+    argv = ["-i", files[0], "-t", files[1], "--device", "cuda"] \
+        + lsh_flags(BASE)
+    for ndev in sorted({1, have}):
+        out = os.path.join(root, f"idx_base_mesh{ndev}")
+        with no_kernel_launched(n, f"`index --mesh {ndev}`"):
+            nk, dt = index_cli(argv + ["-o", out, "--mesh", str(ndev)],
+                               BASE["seed"], 1)
+        check(nk == BASE_KMERS,
+              f"--mesh {ndev} built {nk} k-mers, want {BASE_KMERS}")
+        same_directory(n, f"--mesh {ndev} vs phase 4's directory", idx, out)
+        phase(n, f"`index --mesh {ndev}`: {nk} k-mers in {dt:.3f} s, "
+                 f"{nk / dt:.1f} k-mers/s on {card}")
+    try:
+        index_cli(argv + ["-o", os.path.join(root, "idx_base_mesh_over"),
+                          "--mesh", str(have + 1)], BASE["seed"], 1)
+    except RuntimeError as e:
+        check(f"this machine has {have}" in str(e), f"--mesh {have + 1}: {e}")
+        phase(n, f"`index --mesh {have + 1}` raises: {e}")
+    else:
+        raise SmokeFailure(f"--mesh {have + 1} ran on {have} card(s)")
+
+
+def card_vs_host_build(n: int, root: str, tag: str, cfg: dict, flags,
+                       plant: bool):
+    """A generated world through `index` with `flags`, --device cuda
+    against --device cpu: the same directory. Returns (k-mers, files)."""
+    import numpy as np
+
+    from krepp_tpu_torch.testing import make_world_codes, write_world_files
+
+    rng = np.random.default_rng(cfg["seed"])
+    nwk, genomes = make_world_codes(rng, nleaves=cfg["nleaves"],
+                                    glen=cfg["glen"], rate=cfg["rate"])
+    if plant:   # homopolymers and tandem repeats of 60-200 bases
+        for (contig,) in genomes.values():
+            for at in range(2000, len(contig) - 300, 6000):
+                unit = rng.integers(0, 4, int(rng.integers(1, 5)))
+                run = int(rng.integers(60, 200))
+                contig[at: at + run] = np.resize(unit, run)
+    files = write_world_files(os.path.join(root, f"{tag}_refs"), nwk, genomes)
+    argv = ["-i", files[0], "-t", files[1]] + lsh_flags(cfg) + flags
+    built = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(root, f"idx_{tag}_{dev}")
+        if dev == "cuda":
+            said = " ".join(lsh_flags(cfg)[4:6] + flags)
+            with no_kernel_launched(n, f"`index {said}` on cuda"):
+                built[dev] = index_cli(argv + ["-o", out, "--device", dev],
+                                       cfg["seed"], 1)
+        else:
+            built[dev] = index_cli(argv + ["-o", out, "--device", dev],
+                                   cfg["seed"], 1)
+    check(built["cuda"][0] == built["cpu"][0] > 0,
+          f"{tag}: {built['cuda'][0]} k-mers on cuda, {built['cpu'][0]} on "
+          f"the host")
+    same_directory(n, f"{tag}: --device cuda vs --device cpu",
+                   os.path.join(root, f"idx_{tag}_cpu"),
+                   os.path.join(root, f"idx_{tag}_cuda"))
+    phase(n, f"{tag}: {cfg['nleaves']} genomes x {cfg['glen']} bases, "
+             f"{built['cuda'][0]} k-mers, {built['cuda'][1]:.2f} s on cuda, "
+             f"{built['cpu'][1]:.2f} s on the host")
+    return built["cuda"][0], files
+
+
+def build_path_phases(root: str, card: str, idx: str, base_files,
+                      base_genome, sk: str):
+    """Phases 22-27: the device forms of the build path, against phase 4's
+    base directory `idx` and phase 18's sketch `sk`."""
+    with timed(22, "int64 pieces, card vs host"):
+        int64_pieces(22)
+
+    with timed(23, "base through the device winnower"):
+        device_winnowed_base(23, root, base_files, idx, base_genome, card)
+
+    with timed(24, "5 Mbp sketch through the device winnower"):
+        device_winnowed_sketch(24, root, sk, card)
+
+    with timed(25, "index --mesh"):
+        mesh_base(25, root, base_files, idx, card)
+
+    with timed(26, "sdust"):
+        masked, sfiles = card_vs_host_build(26, root, "sdust", SDUST,
+                                            SDUST_FLAGS, plant=True)
+        plain, _ = index_cli(
+            ["-i", sfiles[0], "-t", sfiles[1], "-o",
+             os.path.join(root, "idx_sdust_plain")] + lsh_flags(SDUST),
+            SDUST["seed"], 1)
+        check(0 < masked < plain, f"sdust kept {masked} of {plain} k-mers")
+        phase(26, f"sdust masked {plain - masked} of the {plain} k-mers of "
+                  f"the unmasked build")
+
+    with timed(27, "a window wider than the C winnower's"):
+        nk, _ = card_vs_host_build(27, root, "window", WINDOW, [],
+                                   plant=False)
+        check(nk == WINDOW_KMERS, f"window built {nk} k-mers, want "
+                                  f"{WINDOW_KMERS}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1110,6 +1455,7 @@ def main() -> int:
         with timed(9, "long reads"):
             lfq, lfq_cpu = write_reads(bgen, BASE["seed"] + 2, LONG_READS,
                                        LONG_LEN, WIDE_CPU_READS, root, "long")
+            base_genome = bgen["G000"][0]
             del bgen
             lout = os.path.join(root, "long_gpu.tsv")
             dist_on_card(9, idx, lfq, lout, LONG_READS, "probe_hist_tiles",
@@ -1205,6 +1551,8 @@ def main() -> int:
 
         with timed(20, "index round trips"):
             round_trips(20, root, base_files, fq, out_gpu, nk, launches)
+
+        build_path_phases(root, card, idx, base_files, base_genome, sk)
 
     check(not reference_modules(),
           f"the run imported {reference_modules()}")

@@ -1,12 +1,13 @@
 """krepp_tpu_torch: the PyTorch/CUDA port of krepp_tpu.
 
 The JAX package `krepp_tpu` stays the reference; this package reproduces
-its query path with torch ops on an explicit device and hand-written CUDA
-kernels for Hopper (sm_90a) in place of the Pallas TPU kernels. It never
-imports JAX and nothing of `krepp_tpu`: the host modules it needs (params,
-reports, tree, index.colors, io.native, core.native_*, core.hll,
-core.stdrand; numpy and ctypes code) are its own copies under the same
-names, as is the numpy code of index.build/index/artifact, io.fastx,
+its query paths and its index-build path (the device winnower, sdust
+masking, the multi-device build) with torch ops on an explicit device, and
+hand-written CUDA kernels for Hopper (sm_90a) in place of the Pallas TPU
+kernels. It never imports JAX and nothing of `krepp_tpu`: the host modules
+it needs (params, reports, tree, index.colors, io.native, core.native_*,
+core.hll, core.sdust, core.stdrand; numpy and ctypes code) are its own
+copies under the same names, as is the numpy code of index.build/index/artifact, io.fastx,
 inspect and testing. The five C sources (winnower, jplace emitter, radix
 sort, colorizer, FASTA/FASTQ reader) are copies in csrc/, built at first
 use by the port's own loaders through csrc/build.cc_library.

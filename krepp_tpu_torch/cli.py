@@ -3,8 +3,10 @@
 
 Mirrors krepp_tpu/cli.py's surfaces, flags and validation (ref:
 src/krepp.cpp:508-800), plus `--device` on the commands that run on a
-device (default cuda; the host runs only with --device cpu). `index`,
-`sketch` and `inspect` run on the host and take no `--device`.
+device (default cuda; the host runs only with --device cpu). `index` and
+`sketch` use theirs on three paths only (sdust masking, the device winnower,
+`index --mesh N`); with the native C winnower they run on the host and need
+no card. `inspect` runs on the host and takes no `--device`.
 """
 
 from __future__ import annotations
@@ -57,11 +59,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="Also write the reference binary artifact files.")
     sc.add_argument("--mesh", type=int, default=0, dest="mesh",
                     help="Winnow genomes data-parallel across this many "
-                         "devices (not ported yet; 0 = host build).")
+                         "devices (0 = single-device build).")
     sc.add_argument("--partial", action="store_true",
                     help="Write a suffixed partial artifact so independently"
                          " built residues (e.g. -r 0/-r 1 with --no-frac) "
                          "can share one directory and combine at load.")
+    _add_device(sc, build=True)
 
     sc = sub.add_parser("dist", add_help=False,
                         help="Estimate distances of queries to genomes in "
@@ -103,6 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("-o", "--output-path", required=True,
                     help="Path to store the resulting binary sketch file.")
     _add_lsh_opts(sc, 26, "k-16")
+    _add_device(sc, build=True)
 
     sc = sub.add_parser("seek", add_help=False,
                         help="Seek query sequences in a sketch and estimate "
@@ -140,10 +144,14 @@ def _add_query_opts(sc):
     sm.add_argument("--no-summarize", dest="summarize", action="store_false")
 
 
-def _add_device(sc):
+def _add_device(sc, build: bool = False):
     sc.add_argument("--device", default="cuda",
                     help="torch device: cuda (default; fails without a "
-                         "card) or cpu.")
+                         "card) or cpu." + (
+                        " Used by sdust masking, the device winnower "
+                        "(KREPP_DEVICE_WINNOW=1, or w - k + 1 > 4096) and "
+                        "--mesh; the C winnower runs on the host and needs "
+                        "no card." if build else ""))
 
 
 def _add_lsh_opts(sc, k_def: int, h_note: str):
@@ -215,8 +223,9 @@ def main(argv=None) -> int:
 def _refuse_mesh(args):
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: the sharded build and engines are not ported to "
-            "krepp_tpu_torch yet (ROADMAP Queue 1, slice 7)")
+            "--mesh: the sharded and multi-host query engines are not "
+            "ported to krepp_tpu_torch yet (ROADMAP Queue 1, slice 7); "
+            "only `index --mesh N` is")
 
 
 def _make_params(args):
@@ -237,7 +246,6 @@ def cmd_index(args, inv):
     from .index.build import build_index
     from .tree.newick import Tree
 
-    _refuse_mesh(args)
     params = _make_params(args)
     input_map = []
     with open(args.input_file) as f:
@@ -257,8 +265,21 @@ def cmd_index(args, inv):
         tree = Tree.parse(nwk)
         tree.nwk_str = nwk
     print("Building the index...", file=sys.stderr)
-    built = build_index(input_map, params, tree,
-                        num_threads=max(1, args.num_threads))
+    if args.mesh:
+        from .parallel.build import build_index_sharded, mesh_devices
+
+        if params.sdust_t > 0 and params.sdust_w > 0:
+            raise SystemExit(
+                "--mesh with --sdust-t/--sdust-w: the sharded build does not "
+                "mask (it would write the unmasked index); build with one of "
+                "the two")
+        built = build_index_sharded(
+            input_map, params, tree,
+            devices=mesh_devices(args.mesh, args.device))
+    else:
+        built = build_index(input_map, params, tree,
+                            num_threads=max(1, args.num_threads),
+                            device=args.device)
     print(f"\nTotal number of k-mers indexed: {built.nkmers}",
           file=sys.stderr)
     artifact.save_native(built, args.index_dir, seed=args.seed or 0,
@@ -338,7 +359,8 @@ def cmd_sketch(args, inv):
     from .index.artifact import save_sketch_reference
     from .index.build import build_sketch
 
-    save_sketch_reference(build_sketch(args.input_file, _make_params(args)),
+    save_sketch_reference(build_sketch(args.input_file, _make_params(args),
+                                       device=args.device),
                           args.output_path)
 
 

@@ -190,6 +190,32 @@ def strand_hashes(codes: torch.Tensor, lsh: LSHParams):
             window_valid(codes, lsh.k))
 
 
+def bp64(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """2-bit packed k-mer encoding per window as ONE int64 (the bit
+    pattern of the u64), [..., P].
+
+    bp64 = sum_j base(bit-position j) << 2j (ref: src/common.hpp:225-243);
+    bit-position j is offset k-1-j in the window. The reference's
+    `bp64_pair` carries it as a (hi, lo) u32 pair; here each half is summed
+    mod 2^32 as there and the halves are joined, so a window holding an N
+    (code 4, which spills over its two bits) gives the same bits as the
+    pair does. Only the index-build path (minimizer hashing) needs it."""
+    P = codes.shape[-1] - k + 1
+    c = codes.to(torch.int64)
+    lo = torch.zeros(c.shape[:-1] + (P,), dtype=torch.int64,
+                     device=c.device)
+    hi = torch.zeros_like(lo)
+    for j in range(k):
+        win = c[..., k - 1 - j: k - 1 - j + P]
+        if j < 16:
+            lo += win << (2 * j)
+        else:
+            hi += win << (2 * j - 32)
+    # (hi & mask) << 32 wraps into the sign bit for k = 32: the bit pattern
+    # is the u64's
+    return ((hi & (_U32 - 1)) << 32) | (lo & (_U32 - 1))
+
+
 def popcount16(v: torch.Tensor) -> torch.Tensor:
     """SWAR popcount of int32 values in [0, 2^16)."""
     v = v - ((v >> 1) & 0x5555)

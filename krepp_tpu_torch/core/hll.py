@@ -10,7 +10,9 @@ Note the reference passes 64-bit xur64 hashes to HyperLogLog::add(uint32_t)
 must do the same (pass the lo word).
 
 The port's own copy of krepp_tpu/core/hll.py: the port imports
-nothing of the JAX package, so it carries the host code it needs.
+nothing of the JAX package, so it carries the host code it needs. Added
+here: `genome_rho`, the per-genome accumulation that each winnower of the
+original spells out for itself.
 """
 
 from __future__ import annotations
@@ -73,3 +75,29 @@ class HyperLogLog:
         if self.m != other.m:
             raise ValueError("number of registers doesn't match")
         np.maximum(self.M, other.M, out=self.M)
+
+
+def genome_rho(per_contig, from_registers: bool):
+    """Concatenate per-contig (rows, res, c1, c2) results (None skipped)
+    into (rows, res, rho): rho is the ratio of the summed per-sequence
+    HyperLogLog estimates (ref: src/rqseq.hpp:79). c1/c2 are register
+    arrays when from_registers, else the u32 hashes to add."""
+    all_rows, all_res = [], []
+    n1 = n2 = 0.0
+    for out in per_contig:
+        if out is None:
+            continue
+        rows, res, c1, c2 = out
+        all_rows.append(rows)
+        all_res.append(res)
+        h1, h2 = HyperLogLog(HLL_B), HyperLogLog(HLL_B)
+        if from_registers:
+            h1.M, h2.M = c1, c2
+        else:
+            h1.add_many(c1)
+            h2.add_many(c2)
+        n1 += h1.estimate()
+        n2 += h2.estimate()
+    rows = np.concatenate(all_rows) if all_rows else np.empty(0, np.uint32)
+    res = np.concatenate(all_res) if all_res else np.empty(0, np.uint32)
+    return rows, res, (n2 / n1) if n1 > 0 else 0.0

@@ -23,7 +23,7 @@ import numpy as np
 from ..csrc.build import BUILD_DIR, CSRC_DIR, cc_library
 from ..params import IndexParams
 from .hll import HLL_B as _HLL_B
-from .hll import HyperLogLog
+from .hll import genome_rho
 
 SRC = os.path.join(CSRC_DIR, "extract.c")
 CC_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared")
@@ -126,23 +126,6 @@ def extract_genome_mers_native(contigs: Iterable[np.ndarray],
                                ) -> Tuple[np.ndarray, np.ndarray, float]:
     """Winnow a genome natively; returns (rows, res, rho), rho the summed
     per-sequence HLL-estimate ratio (ref: src/rqseq.hpp:79)."""
-    all_rows, all_res = [], []
-    n1 = n2 = 0.0
-    for codes in contigs:
-        out = extract_sequence_mers_native(np.asarray(codes, np.uint8),
-                                           params)
-        if out is None:
-            continue
-        rows, res, c1, c2 = out
-        all_rows.append(rows)
-        all_res.append(res)
-        h1 = HyperLogLog(_HLL_B)
-        h1.M = c1
-        n1 += h1.estimate()
-        h2 = HyperLogLog(_HLL_B)
-        h2.M = c2
-        n2 += h2.estimate()
-    rows = np.concatenate(all_rows) if all_rows else np.empty(0, np.uint32)
-    res = np.concatenate(all_res) if all_res else np.empty(0, np.uint32)
-    rho = (n2 / n1) if n1 > 0 else 0.0
-    return rows, res, rho
+    return genome_rho(
+        (extract_sequence_mers_native(np.asarray(codes, np.uint8), params)
+         for codes in contigs), from_registers=True)

@@ -1,23 +1,26 @@
 """Index build: genome winnowing -> sorted merge -> colors -> frozen CSR;
 and the single-genome sketch build.
 
-JAX-free copy of krepp_tpu/index/build.py (its module imports the device
-winnower and the sdust extractor, which import JAX). Winnowing goes only
-through the repo's native C winnower, loaded by the port's
-core/native_extract.py; the device winnower and sdust-masked extraction
-raise until ROADMAP Queue 1 item 12 ports them. The merge, dedupe and coloring
-are the reference's numpy and C code, so a build here is field-for-field
-the JAX package's build.
+JAX-free port of krepp_tpu/index/build.py. A genome is winnowed by one of
+three semantically identical paths, routed as in the reference
+(`_extract_genome`): the sdust-masked extractor when --sdust-t/-w are set,
+else the native C winnower (host only, needs no card), else (with
+KREPP_DEVICE_WINNOW set, or a window the C winnower's rings cannot hold)
+the device winnower of core/winnow_device.py in torch ops on `device`. The
+merge, dedupe and coloring are the reference's numpy and C code, so a
+build here is field-for-field the JAX package's build.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..core import masked_extract, native_extract, winnow_device
 from ..io.fastx import read_genome_codes
 from ..params import IndexParams
 from ..tree.flat import FlatTree
@@ -73,20 +76,24 @@ class BuiltSketch:
         return len(self.enc_v)
 
 
-def _extract_genome(contigs, params: IndexParams):
-    """Winnow one genome with the native C winnower (built by the port's
-    own loader; a failed build raises)."""
-    from ..core import native_extract
+def _extract_genome(contigs, params: IndexParams, device="cuda"):
+    """Winnow one genome: native C by default, else the device pipeline.
 
+    The three implementations (native, device, host compaction) are
+    semantically identical (tested); sdust masking runs through its own
+    path. Set KREPP_DEVICE_WINNOW=1 to force the on-device winnower; a
+    window past the C winnower's rings takes it too. `device` is used by
+    the masked and the device path only, and neither falls back: "cuda"
+    without a card raises."""
     if params.sdust_t > 0 and params.sdust_w > 0:
-        raise NotImplementedError(
-            "sdust-masked extraction is not ported to krepp_tpu_torch yet "
-            "(ROADMAP Queue 1, item 12)")
-    if not native_extract.window_fits(params):
-        raise NotImplementedError(
-            "w - k + 1 exceeds the native C winnower's window and device "
-            "winnowing is not ported yet (ROADMAP Queue 1, item 12)")
-    return native_extract.extract_genome_mers_native(contigs, params)
+        return masked_extract.extract_genome_mers_masked(contigs, params,
+                                                         device)
+    elif (not os.environ.get("KREPP_DEVICE_WINNOW")
+            and native_extract.window_fits(params)):
+        return native_extract.extract_genome_mers_native(contigs, params)
+    else:
+        return winnow_device.extract_genome_mers_device(contigs, params,
+                                                        device)
 
 
 def _dedupe_genome(rows: np.ndarray, res: np.ndarray
@@ -100,14 +107,16 @@ def _dedupe_genome(rows: np.ndarray, res: np.ndarray
 
 def build_index(input_map: Sequence[Tuple[str, str]], params: IndexParams,
                 tree: Optional[Tree] = None, progress: bool = True,
-                num_threads: int = 1) -> BuiltIndex:
-    """Build a single-partial index from {name -> genome path}."""
+                num_threads: int = 1, device="cuda") -> BuiltIndex:
+    """Build a single-partial index from {name -> genome path}. `device`
+    serves the winnowing paths that run on one (see _extract_genome)."""
     names = [n for n, _ in input_map]
     path_of = dict(input_map)
     contig_source = {n: (lambda p=path_of[n]: read_genome_codes(p))
                      for n in names if n in path_of}
     return build_index_from_sources(names, contig_source, params, tree,
-                                    progress, num_threads=num_threads)
+                                    progress, num_threads=num_threads,
+                                    device=device)
 
 
 def _prepare_tree(names: List[str], tree: Optional[Tree]):
@@ -124,7 +133,8 @@ def _prepare_tree(names: List[str], tree: Optional[Tree]):
 def build_index_from_sources(names: List[str], contig_source,
                              params: IndexParams, tree: Optional[Tree] = None,
                              progress: bool = True,
-                             num_threads: int = 1) -> BuiltIndex:
+                             num_threads: int = 1,
+                             device="cuda") -> BuiltIndex:
     """Core build: contig_source[name]() yields per-contig code arrays.
 
     num_threads > 1 winnows genomes on a host thread pool (the native
@@ -135,7 +145,8 @@ def build_index_from_sources(names: List[str], contig_source,
     tree, ftree, leaf_se = _prepare_tree(names, tree)
 
     def extract_dedup(n):
-        rows, res, g_rho = _extract_genome(list(contig_source[n]()), params)
+        rows, res, g_rho = _extract_genome(list(contig_source[n]()), params,
+                                           device)
         rows, res = sort_unique_pairs(rows, res, inplace=True)
         return rows, res, g_rho
 
@@ -300,12 +311,13 @@ def _merge_and_color(rows: np.ndarray, res: np.ndarray, leaf: np.ndarray,
 
 
 def build_sketch(path: str, params: IndexParams,
-                 progress: bool = True) -> BuiltSketch:
+                 progress: bool = True, device="cuda") -> BuiltSketch:
     """Single-genome sketch (ref: src/krepp.cpp:110-119): the genome's
     distinct (row, residual) pairs as a CSR over local rows."""
     from ..core.native_sort import sort_k
 
-    rows, res, rho = _extract_genome(read_genome_codes(path), params)
+    rows, res, rho = _extract_genome(read_genome_codes(path), params,
+                                     device)
     key = sort_k(rows.astype(np.uint64) << np.uint64(32)
                  | res.astype(np.uint64))
     if len(key):

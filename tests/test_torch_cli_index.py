@@ -1,7 +1,10 @@
 """The port's `index` command and the loading of every index form it
 writes, against krepp_tpu's: the same genome files through both CLIs give
 the same directory, and a directory written by the port loads to the same
-DeviceIndex, `inspect` text and `dist` TSV in both packages. CPU only."""
+DeviceIndex, `inspect` text and `dist` TSV in both packages; `index` and
+`sketch` on their device paths (sdust masking, the device winnower, windows
+wider than the C winnower's, `index --mesh N`) with --device cpu. CPU
+only."""
 
 import dataclasses
 import filecmp
@@ -129,17 +132,162 @@ def test_index_rejects_a_malformed_map_with_the_reference_text(world,
             "Failed to read the reference name to path/URL mapping!"
 
 
+def _planted_world(d, seed, glen):
+    """Three genomes with a planted homopolymer and a planted dinucleotide
+    repeat each, as FASTA files with the name->path TSV and the tree."""
+    rng = np.random.default_rng(seed)
+    nwk, genomes = worldgen.make_world(rng, nleaves=3, glen=glen, rate=0.05)
+    for name, (seq,) in genomes.items():
+        genomes[name] = [seq[:1000] + "A" * 100 + seq[1100:3000] + "AT" * 45
+                         + seq[3090:]]
+    with open(d / "map.tsv", "w") as f:
+        for name, path in write_world(d, genomes):
+            f.write(f"{name}\t{path}\n")
+    with open(d / "tree.nwk", "w") as f:
+        f.write(nwk + "\n")
+    return d
+
+
+@pytest.fixture(scope="module")
+def long_world(tmp_path_factory):
+    """5,000-bp genomes: the size for sdust's per-base host loop."""
+    return _planted_world(tmp_path_factory.mktemp("torch_cli_index_long"),
+                          103, 5000)
+
+
+@pytest.fixture(scope="module")
+def wide_world(tmp_path_factory):
+    """20,000-bp genomes: several 4,200-bp windows each."""
+    return _planted_world(tmp_path_factory.mktemp("torch_cli_index_wide"),
+                          104, 20000)
+
+
+def _host_winnower_for_wide_windows(monkeypatch):
+    """krepp_tpu's device winnower unrolls w - k passes into one program,
+    which at w = 4200 does not compile in a test's time on the CPU: the
+    reference directory of that case is built through its host path
+    (minimizer.extract_genome_mers), which krepp_tpu's own tests hold equal
+    to its device path."""
+    from krepp_tpu.core import minimizer as jminimizer
+    from krepp_tpu.core import winnow_device as jwd
+
+    monkeypatch.setattr(jwd, "extract_genome_mers_device",
+                        jminimizer.extract_genome_mers)
+
+
 @pytest.mark.parametrize("flags,names", [
-    (["--mesh", "2"], "slice 7"),
-    (["--sdust-t", "20", "--sdust-w", "64"], "item 12"),
-    (["-w", "4200"], "item 12"),
-])
-def test_index_options_not_ported_raise_naming_their_item(world, tmp_path,
-                                                          flags, names):
-    argv = _index_argv(world, tmp_path / "x", ["-t"]) + flags
-    with pytest.raises(NotImplementedError, match=names):
+    (["--mesh", "2"], "world"),
+    (["--sdust-t", "20", "--sdust-w", "64"], "long_world"),
+    (["-w", "4200"], "wide_world"),
+], ids=["flags0-slice 7", "flags1-item 12", "flags2-item 12"])
+def test_index_options_not_ported_raise_naming_their_item(
+        request, monkeypatch, tmp_path, flags, names):
+    """The three options that used to raise NotImplementedError (the ids
+    name the ROADMAP entries they waited for): each now builds, on the
+    host's torch device, the directory krepp_tpu's `index` writes."""
+    d = request.getfixturevalue(names)
+    if "-w" in flags:
+        _host_winnower_for_wide_windows(monkeypatch)
+    argv = _index_argv(d, tmp_path / "want", ["-t"]) + flags
+    assert jcli.main(argv) == 0
+    argv = _index_argv(d, tmp_path / "x", ["-t"]) + flags
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    _assert_same_directory(tmp_path / "want", tmp_path / "x")
+    assert artifact.load_index(str(tmp_path / "x")).nkmers > (
+        5 if "-w" in flags else 500)
+
+
+@pytest.mark.parametrize("case", ["mesh4", "device_winnower",
+                                  "device_winnower_threads",
+                                  "device_winnower_reference_format",
+                                  "sdust_partial_no_frac"])
+def test_index_device_paths_write_the_reference_directory(
+        world, long_world, monkeypatch, tmp_path, case):
+    """`index --mesh 4`, `index` with KREPP_DEVICE_WINNOW=1 (the variable
+    krepp_tpu reads) and sdust with other options, through both CLIs."""
+    d, flags, root = {
+        "mesh4": (world, ["-t", "--mesh", "4"], ()),
+        "device_winnower": (world, ["-t"], ()),
+        "device_winnower_threads": (long_world, [], ("--num-threads", "3")),
+        "device_winnower_reference_format": (
+            long_world, ["-t", "--export-reference-format"], ("--seed", "9")),
+        "sdust_partial_no_frac": (
+            long_world, ["-t", "--sdust-t", "20", "--sdust-w", "64",
+                         "--partial", "--no-frac", "-r", "0"], ()),
+    }[case]
+    if case.startswith("device_winnower"):
+        monkeypatch.setenv("KREPP_DEVICE_WINNOW", "1")
+    else:
+        monkeypatch.delenv("KREPP_DEVICE_WINNOW", raising=False)
+    assert jcli.main(_index_argv(d, tmp_path / "want", flags, root)) == 0
+    assert cli.main(_index_argv(d, tmp_path / "got", flags, root)
+                    + ["--device", "cpu"]) == 0
+    _assert_same_directory(tmp_path / "want", tmp_path / "got")
+
+
+def test_index_sdust_masks_kmers_of_the_planted_runs(long_world, tmp_path):
+    for out, flags in (("plain", []), ("masked", ["--sdust-t", "20",
+                                                  "--sdust-w", "64"])):
+        assert cli.main(_index_argv(long_world, tmp_path / out, ["-t"])
+                        + flags + ["--device", "cpu"]) == 0
+    plain, masked = (artifact.load_index(str(tmp_path / o)).nkmers
+                     for o in ("plain", "masked"))
+    assert 0 < masked < plain
+
+
+@pytest.mark.parametrize("case", ["sdust", "device_winnower",
+                                  "sdust_over_device_winnower"])
+def test_sketch_device_paths_write_the_reference_file(
+        long_world, monkeypatch, tmp_path, case):
+    """(A sketch file holds w in one byte, so a window wider than the C
+    winnower's cannot be sketched by either package.)"""
+    flags = [] if case == "device_winnower" else ["--sdust-t", "20",
+                                                  "--sdust-w", "64"]
+    monkeypatch.delenv("KREPP_DEVICE_WINNOW", raising=False)
+    if case != "sdust":
+        monkeypatch.setenv("KREPP_DEVICE_WINNOW", "1")
+    argv = ["sketch", "-i", str(long_world / "G001.fna"), "-k", "26", *flags]
+    assert jcli.main(argv + ["-o", str(tmp_path / "want.sk")]) == 0
+    assert cli.main(argv + ["-o", str(tmp_path / "got.sk"),
+                            "--device", "cpu"]) == 0
+    assert filecmp.cmp(tmp_path / "want.sk", tmp_path / "got.sk",
+                       shallow=False)
+    assert artifact.load_sketch_reference(
+        str(tmp_path / "got.sk")).nkmers > 200
+
+
+def test_index_mesh_with_sdust_raises_naming_both_flags(long_world, tmp_path):
+    """krepp_tpu's sharded build ignores the sdust flags and writes the
+    unmasked index without a word; the port refuses the pair instead."""
+    argv = _index_argv(long_world, tmp_path / "x", ["-t"]) + [
+        "--mesh", "2", "--sdust-t", "20", "--sdust-w", "64", "--device", "cpu"]
+    with pytest.raises(SystemExit, match=r"--mesh with --sdust-t/--sdust-w"):
         cli.main(argv)
     assert not os.path.exists(tmp_path / "x" / "meta.json")
+    assert cli.main(argv[:argv.index("--sdust-t")] + ["--device", "cpu"]) == 0
+
+
+def test_index_mesh_and_device_errors_name_what_is_missing(world, tmp_path,
+                                                            monkeypatch):
+    """No path falls back: the device winnower and --mesh on the default
+    device raise without a card, --mesh N names the count of cards, and
+    the query commands still refuse --mesh."""
+    monkeypatch.setenv("KREPP_DEVICE_WINNOW", "1")
+    argv = _index_argv(world, tmp_path / "x", ["-t"])
+    if not torch.cuda.is_available():
+        for extra in ([], ["--mesh", "2"]):
+            with pytest.raises(RuntimeError, match="is_available"):
+                cli.main(argv + extra)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--mesh 2 asks for 2 CUDA devices "
+                                           "but this machine has 1"):
+        cli.main(argv + ["--mesh", "2"])
+    assert not os.path.exists(tmp_path / "x" / "meta.json")
+    for cmd in ("dist", "place"):
+        with pytest.raises(NotImplementedError, match="query engines"):
+            cli.main([cmd, "-q", str(world / "q.fq"), "-i", "unused",
+                      "--mesh", "1x2", "--device", "cpu"])
 
 
 # ------------------------------------------------------------------ loading

@@ -1,5 +1,5 @@
 """The port's own copies of krepp_tpu's host modules (params, stdrand,
-reports, tree, colors, hll, native_sort, native_colorize, io.native, and
+reports, tree, colors, hll, sdust, native_sort, native_colorize, io.native, and
 the small helpers of index.artifact; its save / load functions are held
 equal on whole directories in test_torch_cli_index.py): the
 same numpy-seeded inputs through the original and the copy, exact equality
@@ -18,6 +18,7 @@ from krepp_tpu import reports as jreports
 from krepp_tpu.core import hll as jhll
 from krepp_tpu.core import native_colorize as jcolorize
 from krepp_tpu.core import native_sort as jsort
+from krepp_tpu.core import sdust as jsdust
 from krepp_tpu.core import stdrand as jstdrand
 from krepp_tpu.index import colors as jcolors
 from krepp_tpu.io import native as jnative
@@ -25,7 +26,8 @@ from krepp_tpu.testing import make_world
 from krepp_tpu.tree import flat as jflat
 from krepp_tpu.tree import newick as jnewick
 from krepp_tpu_torch import params, reports
-from krepp_tpu_torch.core import hll, native_colorize, native_sort, stdrand
+from krepp_tpu_torch.core import (hll, native_colorize, native_sort, sdust,
+                                  stdrand)
 from krepp_tpu_torch.index import colors
 from krepp_tpu_torch.io import native
 from krepp_tpu_torch.tree import flat, newick
@@ -334,6 +336,30 @@ def test_hyperloglog_matches():
     assert hll.HLL_B == 12
     with pytest.raises(ValueError):
         hll.HyperLogLog(3)
+
+
+# ------------------------------------------------------------------- sdust
+@pytest.mark.parametrize("T,W", [(20, 64), (10, 32), (28, 64)])
+def test_sdust_intervals_match(T, W):
+    rng = np.random.default_rng(T + W)
+    codes = rng.integers(0, 4, 6000).astype(np.uint8)
+    for _ in range(8):       # planted homopolymers, tandem repeats, N runs
+        at = int(rng.integers(0, 5800))
+        unit = rng.integers(0, 4, int(rng.integers(1, 6))).astype(np.uint8)
+        run = int(rng.integers(20, 160))
+        codes[at: at + run] = np.resize(unit, run)[: len(codes) - at]
+    codes[rng.integers(0, 6000, 12)] = 4
+    codes[3000:3040] = 4
+    want, got = jsdust.sdust(codes, T, W), sdust.sdust(codes, T, W)
+    assert want == got and len(got) >= 3
+    assert all(0 <= s < f <= 6000 for s, f in got)
+    assert sdust.sdust(codes[:2], T, W) == jsdust.sdust(codes[:2], T, W)
+    with open(jsdust.__file__) as f, open(sdust.__file__) as g:
+        theirs, ours = f.read(), g.read()
+    assert ours.replace(
+        "\nThe port's own copy of krepp_tpu/core/sdust.py: the port imports"
+        "\nnothing of the JAX package, so it carries the host code it needs."
+        "\n", "") == theirs
 
 
 # ------------------------------------------------------------- native sort

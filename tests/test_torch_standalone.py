@@ -1,7 +1,8 @@
 """The port stands alone: no module of krepp_tpu_torch (nor chip_smoke.py)
 imports `krepp_tpu` or `jax`, a process in which both are blocked imports
 every port module, builds a small world through the port's `index`
-command and runs it end to end on the CPU, the C sources the port compiles
+command (also with sdust masking, the device winnower and --mesh) and runs
+it end to end on the CPU, the C sources the port compiles
 are byte-identical to the reference's, and the distribution declares the
 port's own command."""
 
@@ -105,11 +106,42 @@ same = [run(["dist", "-q", "q.fq", "-i", d, "--device", "cpu"])
         .splitlines()[1:] == dist.splitlines()[1:] for d in ("parts", "ref")]
 place = run(["place", "-q", "q.fq", "-i", "idx", "--device", "cpu"])
 run(["sketch", "-i", "g0.fna", "-o", "g0.sk", "-k", "26"])
+# the device paths of `index` and `sketch`: sdust masking, the device
+# winnower (the same files as the C winnower's), the multi-device build
+run(["index", "-i", "map.tsv", "-o", "idx_sdust", "-t", "tree.nwk", "-k",
+     "27", "-h", "11", "-m", "2", "--sdust-t", "20", "--sdust-w", "64",
+     "--device", "cpu"])
+run(["sketch", "-i", "g0.fna", "-o", "g0_sdust.sk", "-k", "26", "--sdust-t",
+     "20", "--sdust-w", "64", "--device", "cpu"])
+os.environ["KREPP_DEVICE_WINNOW"] = "1"
+run(["index", "-i", "map.tsv", "-o", "idx_dev", "-t", "tree.nwk", "-k", "27",
+     "-h", "11", "-m", "2", "--device", "cpu"])
+run(["sketch", "-i", "g0.fna", "-o", "g0_dev.sk", "-k", "26", "--device",
+     "cpu"])
+del os.environ["KREPP_DEVICE_WINNOW"]
+run(["index", "-i", "map.tsv", "-o", "idx_mesh", "-t", "tree.nwk", "-k", "27",
+     "-h", "11", "-m", "2", "--mesh", "2", "--device", "cpu"])
+
+def same_file(a, b):
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+def same_arrays(a, b):
+    za, zb = np.load(a), np.load(b)
+    return sorted(za.files) == sorted(zb.files) and all(
+        np.array_equal(za[k], zb[k]) for k in za.files)
+
+device_paths = dict(
+    sketch=same_file("g0.sk", "g0_dev.sk"),
+    index=same_arrays("idx/arrays.npz", "idx_dev/arrays.npz"),
+    mesh=same_arrays("idx/arrays.npz", "idx_mesh/arrays.npz"),
+    sdust_kmers=int(len(np.load("idx_sdust/arrays.npz")["enc_v"])),
+    sdust_sketch=os.path.getsize("g0_sdust.sk"))
 seek = run(["seek", "-q", "q.fq", "-i", "g0.sk", "--device", "cpu"])
 inspect = run(["inspect", "-i", "idx"])
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 print(json.dumps(dict(
-    modules=len(mods), loaded=loaded, same=same,
+    modules=len(mods), loaded=loaded, same=same, device_paths=device_paths,
     files=sorted(os.listdir("idx")),
     dist_rows=len(dist.splitlines()) - 2, dist_head=dist.splitlines()[1],
     placements=len(json.loads(place)["placements"]),
@@ -133,6 +165,10 @@ def test_port_runs_end_to_end_with_the_reference_and_jax_blocked(tmp_path):
     assert got["seek_rows"] == 12 and got["seek_found"] >= 1
     assert got["inspect_head"] == "Backbone tree: "
     assert got["same"] == [True, True]
+    paths = got["device_paths"]
+    assert paths["sketch"] and paths["index"] and paths["mesh"]
+    assert paths["sdust_kmers"] > 500 and paths["sdust_sketch"] > 1000
+    assert got["modules"] >= 36          # parallel/ and the new core modules
     assert {"meta.json", "arrays.npz", "tree.nwk", "reflist.txt",
             "cmer-m2r1-frac", "crecord-m2r1-frac"} <= set(got["files"])
 
