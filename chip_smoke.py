@@ -107,22 +107,44 @@ checks them:
  25. `index --mesh 1 --device cuda` on base (and `--mesh N` where the
      machine has N > 1 cards): phase 4's directory again; one card too many
      raises naming the count;
- 26. sdust: 8 genomes x 50 kbp with planted homopolymers and tandem
+ 26. sdust: 4 genomes x 50 kbp with planted homopolymers and tandem
      repeats, `index --sdust-t 20 --sdust-w 64` with --device cuda and with
      --device cpu: the same directory; k-mers masked against the unmasked
      build;
  27. a window wider than the C winnower's (w = 4200, ldiff 4174) on two
      1 Mbp genomes (one tile each, 13 doubling passes, some hundreds of
      k-mers), --device cuda against --device cpu: the same directory.
+ 28. the sharded query engine in process, on the first 16,384 reads of
+     base, wide and many (the worlds at full size, the reads cut): base
+     dist (probe_hist_packed on the shard), wide dist and place
+     (probe_hist_tiles), many dist and place (event lanes across shards)
+     and many dist with KREPP_SHARD_DENSE=1 (the dense event probe), each
+     through the CLI with `--mesh 1x1` and byte for byte the one-device
+     report of the same reads, run just before it; the first launch of
+     each epilogue kernel on the shard bit-equal to its plain version
+     (phase 3b's hook); warm reads/s of 1x1 beside one device on wide and
+     many dist, passes in turn, and each run's peak device memory;
+ 29. two processes on the one card over gloo (KREPP_NUM_PROCESSES=2,
+     KREPP_DIST_BACKEND=gloo), each under the same import block: wide and
+     many dist and wide place --tabular with `--mesh 1x2 -o PATH`, so the
+     shard merge crosses processes; PATH.rank0 and PATH.rank1
+     concatenated (the header once) are the one-device report byte for
+     byte; seconds, peak device memory and launches of each rank;
+ 30. on a machine with N >= 2 cards: wide and many dist with `--mesh 1xN`
+     and `2x(N/2)` in process (byte for byte, warm reads/s of 1xN beside
+     1x1) and wide dist in two NCCL processes, a card each; on one card
+     a line says it was skipped.
 
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
 before the last is the kernels JSON (launches: counted over the CLI runs on
-cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18 and 20, and for dma_gather
-over the microbenchmark of phase 12; the build path of phases 22-27 runs
-torch ops and no hand-written kernel, which phases 23-27 check; ms, plain_ms, bound_ms and library_ms
-at the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b,
-dma_gather's cold_ms and cold_bound_ms on the [32M x 5] table and its
-launcher_ms through the bare launcher);
+cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18, 20 and 28-30, the ranks
+of other processes included, and for dma_gather over the microbenchmark of
+phase 12; the build path of phases 22-27 runs torch ops and no hand-written
+kernel, which phases 23-27 check; ms, plain_ms, bound_ms and library_ms at
+the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b,
+shard_batch_ms and shard_batch_bound_ms from phase 28, dma_gather's cold_ms
+and cold_bound_ms on the [32M x 5] table and its launcher_ms through the
+bare launcher);
 the last line is {"ok": true, "device": {...}}. Without a card it exits 1
 and prints no result.
 """
@@ -163,7 +185,7 @@ SEEK_SEED = 19
 SEEK_GLEN = 5_000_000
 SEEK_READS = 65536
 SEEK_KMERS = 624980                           # PERF.md section 4
-SDUST = dict(seed=23, nleaves=8, glen=50_000, rate=0.05, k=27, h=11, w=35,
+SDUST = dict(seed=23, nleaves=4, glen=50_000, rate=0.05, k=27, h=11, w=35,
              m=4)
 SDUST_FLAGS = ["--sdust-t", "20", "--sdust-w", "64"]   # NCBI dustmasker's
 WINDOW = dict(seed=29, nleaves=2, glen=1_000_000, rate=0.05, k=27, h=11,
@@ -189,6 +211,43 @@ REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
     "hdist_chunk": "krepp_tpu/query/pallas_kernels.py:28",
     "dma_gather": "tools/probe_microbench.py:157",
 }
+MESH_READS = 16384            # reads a world in the sharded phases 28-30
+# (world, command, flags, epilogue kernel, engine mode, environment) of the
+# in-process `--mesh 1x1` runs of phase 28, each against one device
+MESH_RUNS = (
+    ("base", "dist", [], "probe_hist_packed", "hybrid", None),
+    ("wide", "dist", [], "probe_hist_tiles", "hybrid", None),
+    ("wide", "place", [], "probe_hist_tiles", "hybrid", None),
+    ("many", "dist", [], None, "event", None),
+    ("many", "dist", [], None, "event", {"KREPP_SHARD_DENSE": "1"}),
+    ("many", "place", [], None, "event", None),
+)
+# the runs of several processes (phases 29, 30), one batch each, so that
+# the rank files concatenated are the one-device report
+RANK_RUNS = (
+    ("wide", "dist", [], "probe_hist_tiles", "hybrid"),
+    ("many", "dist", [], None, "event"),
+    ("wide", "place", ["--tabular"], "probe_hist_tiles", "hybrid"),
+)
+CHILD_TIMEOUT_S = 300         # each process of a multi-process run
+# a rank of a multi-process run: the CLI under the same import block, then
+# one JSON line (exit code, seconds, peak device memory, kernel launches)
+CHILD = """\
+import json, sys, time
+import chip_smoke
+sys.meta_path.insert(0, chip_smoke.BlockReference())
+import torch
+from krepp_tpu_torch import cli
+from krepp_tpu_torch.query import kernels
+t0 = time.time()
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "seconds": time.time() - t0,
+                  "peak": torch.cuda.max_memory_allocated(),
+                  "launches": {k: getattr(kernels, k).launches
+                               for k in chip_smoke.KERNELS},
+                  "imported": chip_smoke.reference_modules()}))
+sys.exit(rc)
+"""
 
 
 class SmokeFailure(RuntimeError):
@@ -474,10 +533,12 @@ def kernels_vs_plain():
     return result
 
 
-def kept_batch(name: str, world: str, kstats: dict):
+def kept_batch(name: str, world: str, kstats: dict, key: str = "batch",
+               tag="3b"):
     """Phase 3b: the epilogue kernel `name` on the arguments its wrapper
     kept from the first launch of the `world` world's dist run: bit-equal
-    to the plain version; time, bound and share as in phase 3."""
+    to the plain version; time, bound and share as in phase 3, kept in
+    kstats[name] under `key`_ms etc."""
     import torch
 
     from krepp_tpu_torch.query import kernels
@@ -495,10 +556,10 @@ def kept_batch(name: str, world: str, kstats: dict):
                  f"S={want[0].shape[1]} X={want[0].shape[2]}, "
                  f"{float(args[1].float().mean()):.3f} of positions light, "
                  f"{hits:.3f} leaf hits per position", kernel(*args), want,
-                 True, kernel, ref, args, tag="3b")
-    kstats[name].update(batch_ms=r["ms"], batch_plain_ms=r["plain_ms"],
-                        batch_bound_ms=r["bound_ms"],
-                        batch_max_abs_err=r["max_abs_err"])
+                 True, kernel, ref, args, tag=tag)
+    kstats[name].update({f"{key}_ms": r["ms"], f"{key}_plain_ms": r["plain_ms"],
+                         f"{key}_bound_ms": r["bound_ms"],
+                         f"{key}_max_abs_err": r["max_abs_err"]})
     del args, want
     torch.cuda.empty_cache()
 
@@ -1071,15 +1132,21 @@ def inspect_base(n: int, idx: str, nkmers: int):
     return lines
 
 
+def head_fastq(src: str, dst: str, nreads: int) -> str:
+    """The first nreads records of a FASTQ file as a file of their own."""
+    with open(src) as f, open(dst, "w") as g:
+        for _ in range(4 * nreads):
+            g.write(f.readline())
+    return dst
+
+
 def round_trips(n: int, root: str, files, fq: str, base_out: str, nk: int,
                 total: dict):
     """Phase 20: what `index --partial` and `index
     --export-reference-format` write, read back and queried on the card:
     the rows of the plain base index for the first ROUND_TRIP_READS reads."""
-    head = os.path.join(root, "base_head.fq")
-    with open(fq) as f, open(head, "w") as g:
-        for _ in range(4 * ROUND_TRIP_READS):
-            g.write(f.readline())
+    head = head_fastq(fq, os.path.join(root, "base_head.fq"),
+                      ROUND_TRIP_READS)
     want = first_reads(read_rows(base_out), ROUND_TRIP_READS)
     threads = os.cpu_count() or 1
     common = ["-i", files[0], "-t", files[1]] + lsh_flags(BASE)
@@ -1369,6 +1436,273 @@ def build_path_phases(root: str, card: str, idx: str, base_files,
                                   f"{WINDOW_KMERS}")
 
 
+def paired_rates(n: int, world: str, idx: str, fq: str, card: str, meshes):
+    """Warm dist reads/s of one engine per entry of `meshes` (None: one
+    device, else DATAxSHARD over the first cards) on the same reads: a
+    warm-up pass each, then 3 rounds of one pass each in turn, so that the
+    host's drift falls on all alike. Prints the medians and the ratio of
+    the second to the first."""
+    import torch
+
+    from krepp_tpu_torch.index.artifact import load_index
+    from krepp_tpu_torch.parallel.mesh import (ShardedQueryEngine,
+                                               make_query_mesh, parse_mesh)
+    from krepp_tpu_torch.query.dist import DistConfig, run_dist
+    from krepp_tpu_torch.query.engine import QueryEngine
+
+    di = load_index(idx)
+    engines = {m: QueryEngine(di, 4, device="cuda") if m is None else
+               ShardedQueryEngine(di, make_query_mesh(*parse_mesh(m),
+                                                      device="cuda"), 4)
+               for m in meshes}
+    rates = {m: [] for m in meshes}
+    for rep in range(4):
+        for m, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with open(os.devnull, "w") as sink:
+                nr = run_dist(di, fq, sink, "smoke", DistConfig(),
+                              engine_factory=lambda d, th, e=eng: e)
+            torch.cuda.synchronize()
+            if rep:
+                rates[m].append(nr / (time.perf_counter() - t0))
+    med = {m: statistics.median(r) for m, r in rates.items()}
+    said = {m: "one device" if m is None else f"--mesh {m}" for m in meshes}
+    a, b = meshes
+    phase(n, f"{world} dist, {MESH_READS} reads, warm, passes in turn: "
+          + ", ".join(f"{said[m]} {med[m]:.1f} reads/s (spread "
+                      f"{max(r) / min(r):.3f}x)" for m, r in rates.items())
+          + f"; {said[b]} / {said[a]} {med[b] / med[a]:.3f}x on {card}")
+
+
+def card_run(n, label: str, argv, launched, total: dict, mode: str,
+             env=None) -> float:
+    """counted_run of `argv` on cuda with `env` set for the run only; the
+    engine mode must be `mode`. Prints the seconds (index load included),
+    the peak device memory and the launches; returns the seconds."""
+    import torch
+
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        stats, counts, dt = counted_run(argv + ["--device", "cuda"],
+                                        launched, total)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(stats["mode"] == mode, f"{label}: engine mode {stats['mode']}")
+    phase(n, f"{label}: {dt:.2f} s with index load, peak device memory "
+             f"{peak:.3f} GiB, mode={stats['mode']}, launches={counts}, "
+             f"tier re-runs per batch={stats['escalations']}")
+    return dt
+
+
+def same_file(n, label: str, got: str, want: str):
+    import filecmp
+
+    check(filecmp.cmp(got, want, shallow=False),
+          f"{label}: the report differs from one device's")
+    with open(got) as f:
+        nlines = sum(1 for _ in f)
+    phase(n, f"{label}: the one-device report byte for byte ({nlines} "
+             f"lines)")
+
+
+def mesh_in_process(n: int, root: str, worlds: dict, card: str, total: dict,
+                    kstats: dict):
+    """Phase 28: MESH_RUNS through the CLI with `--mesh 1x1` in process,
+    each report byte for byte the one-device report of the same reads; the
+    first launch of each epilogue kernel on a shard held against its plain
+    version; warm reads/s of 1x1 beside one device on wide and many dist,
+    passes in turn. Returns {(world, cmd, *flags): (one-device report,
+    seconds)}."""
+    from krepp_tpu_torch.query import kernels
+
+    singles = {}
+
+    def single(world, cmd, flags, launched, mode):
+        key = (world, cmd, *flags)
+        if key not in singles:
+            idx, fq = worlds[world]
+            out = os.path.join(root, "_".join(("one",) + key))
+            singles[key] = (out, card_run(
+                n, f"{' '.join(key)} on one device",
+                [cmd, "-q", fq, "-i", idx, "-o", out, *flags], launched,
+                total, mode))
+        return singles[key]
+
+    keep = {"base": "probe_hist_packed", "wide": "probe_hist_tiles"}
+    for world, cmd, flags, launched, mode, env in MESH_RUNS:
+        want, _ = single(world, cmd, flags, launched, mode)
+        idx, fq = worlds[world]
+        out = want + ("_mesh_dense" if env else "_mesh")
+        label = f"{world} {cmd} --mesh 1x1" + "".join(
+            f" {k}={v}" for k, v in (env or {}).items())
+        name = keep.pop(world, None) if cmd == "dist" else None
+        if name:
+            getattr(kernels, name).keep_next = True
+        card_run(n, label, [cmd, "-q", fq, "-i", idx, "-o", out, "--mesh",
+                            "1x1", *flags], launched, total, mode, env)
+        same_file(n, label, out, want)
+        if name:
+            kept_batch(name, f"{world} (--mesh 1x1, shard 0)", kstats,
+                       key="shard_batch", tag=n)
+    for world, cmd, flags, launched, mode in RANK_RUNS:
+        single(world, cmd, flags, launched, mode)
+
+    for world in ("wide", "many"):
+        paired_rates(n, world, *worlds[world], card, (None, "1x1"))
+    return singles
+
+
+def run_ranks(argv, root: str, tag: str, backend: str):
+    """argv through the CLI in two processes of one torch.distributed
+    group (KREPP_* variables, `backend`), each a CHILD under the import
+    block. A process that fails, or a run that outlives CHILD_TIMEOUT_S,
+    fails the phase; every process is stopped before this returns.
+    Returns (each rank's JSON line with its `stats`, seconds)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs = [], []
+    t0 = time.time()
+    try:
+        for r in range(2):
+            env = dict(os.environ, KREPP_COORDINATOR=f"localhost:{port}",
+                       KREPP_NUM_PROCESSES="2",
+                       KREPP_PROCESS_ID=str(r), KREPP_DIST_BACKEND=backend)
+            logs.append(tuple(os.path.join(root, f"{tag}.rank{r}.{s}")
+                              for s in ("out", "err")))
+            with open(logs[r][0], "w") as out, open(logs[r][1], "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", CHILD] + argv, cwd=here, env=env,
+                    stdout=out, stderr=err))
+
+        def tail(r):
+            with open(logs[r][1]) as f:
+                return f.read()[-3000:]
+
+        while any(p.poll() is None for p in procs):
+            for r, p in enumerate(procs):
+                check(p.poll() in (None, 0),
+                      f"{tag}: rank {r} exited {p.poll()}:\n{tail(r)}")
+            check(time.time() - t0 < CHILD_TIMEOUT_S,
+                  f"{tag}: the processes outlived {CHILD_TIMEOUT_S} s:\n"
+                  f"{tail(0)}")
+            time.sleep(0.2)
+        dt = time.time() - t0
+        results = []
+        for r, p in enumerate(procs):
+            check(p.returncode == 0,
+                  f"{tag}: rank {r} exited {p.returncode}:\n{tail(r)}")
+            with open(logs[r][0]) as f:
+                res = json.loads(f.read().strip().splitlines()[-1])
+            with open(logs[r][1]) as f:
+                res["stats"] = json.loads(f.read().split(
+                    f"{argv[1]} stats: ", 1)[1].splitlines()[0])
+            results.append(res)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results, dt
+
+
+def ranks_on_card(n: int, root: str, worlds: dict, singles: dict,
+                  total: dict, backend: str, runs=RANK_RUNS):
+    """Phases 29-30: each of `runs` through the CLI in two processes of one
+    group over `backend` with --mesh 1x2 and -o: the rank files
+    concatenated (their header once) are the one-device report byte for
+    byte, the invocation aside; each rank launched the epilogue kernel
+    of the path and imported nothing of the reference. Adds the ranks'
+    launches to `total`."""
+    for world, cmd, flags, launched, mode in runs:
+        want, one_dt = singles[(world, cmd, *flags)]
+        idx, fq = worlds[world]
+        out = os.path.join(root, f"{world}_{cmd}_{backend}")
+        label = (f"{world} {' '.join([cmd, *flags])} --mesh 1x2, two "
+                 f"processes over {backend}")
+        results, wall = run_ranks(
+            ["--verbose", cmd, "-q", fq, "-i", idx, "-o", out, "--device",
+             "cuda", "--mesh", "1x2", *flags], root, os.path.basename(out),
+            backend)
+        for r, res in enumerate(results):
+            check(not res["imported"], f"{label}: rank {r} imported "
+                                       f"{res['imported']}")
+            stats, counts = res["stats"], res["launches"]
+            check(stats["mode"] == mode and len(stats["escalations"]) == 1,
+                  f"{label}: rank {r} ran mode {stats['mode']} in "
+                  f"{len(stats['escalations'])} batches")
+            if launched is None:
+                check(not any(counts[e] for e in EPILOGUES),
+                      f"{label}: rank {r} launched {counts}")
+            else:
+                check(counts[launched] > 0
+                      and not counts[(EPILOGUES - {launched}).pop()],
+                      f"{label}: rank {r} launched {counts}")
+            for name, c in counts.items():
+                total[name] += c
+        nhead = 3 if cmd == "place" else 2
+        got = []
+        for r in range(2):
+            with open(f"{out}.rank{r}") as f:
+                lines = f.read().splitlines(keepends=True)
+            check(len(lines) > nhead, f"{label}: rank {r} wrote no rows")
+            got += lines if r == 0 else lines[nhead:]
+        with open(want) as f:
+            ref = f.read().splitlines(keepends=True)
+        check(got[0].split("invocation :")[0]
+              == ref[0].split("invocation :")[0] and got[1:] == ref[1:],
+              f"{label}: the rank files differ from one device's report")
+        phase(n, f"{label}: the rank files are the one-device report byte "
+                 f"for byte ({len(ref)} lines, the invocation aside); both "
+                 f"processes {wall:.2f} s (start, index load, run): "
+                 f"{MESH_READS / wall:.1f} reads/s beside one device's "
+                 f"{MESH_READS / one_dt:.1f} in process with index load "
+                 f"({one_dt:.2f} s); per rank: CLI "
+                 f"{[round(r['seconds'], 2) for r in results]} s, peak device"
+                 f" memory {[round(r['peak'] / 2 ** 30, 3) for r in results]}"
+                 f" GiB, launches {[r['launches'] for r in results]}, tier "
+                 f"re-runs {[r['stats']['escalations'] for r in results]}")
+
+
+def multi_card(n: int, root: str, worlds: dict, singles: dict, card: str,
+               total: dict):
+    """Phase 30, on a machine with N >= 2 cards: wide and many dist with
+    --mesh 1xN and 2x(N/2) in process, byte for byte the one-device
+    report, warm reads/s of 1xN beside 1x1 (passes in turn); wide dist in
+    two NCCL processes, a card each."""
+    import torch
+
+    have = torch.cuda.device_count()
+    if have < 2:
+        phase(n, f"skipped: this machine has {have} card; meshes over "
+                 f"several cards in one process, and NCCL ranks (a card "
+                 f"each), need two or more")
+        return
+    for world, cmd, flags, launched, mode in RANK_RUNS[:2]:
+        want, _ = singles[(world, cmd, *flags)]
+        idx, fq = worlds[world]
+        for mesh in (f"1x{have}", f"2x{have // 2}"):
+            out = f"{want}_mesh{mesh}"
+            label = f"{world} {cmd} --mesh {mesh}"
+            card_run(n, label, [cmd, "-q", fq, "-i", idx, "-o", out,
+                                "--mesh", mesh], launched, total, mode)
+            same_file(n, label, out, want)
+        paired_rates(n, world, idx, fq, card, ("1x1", f"1x{have}"))
+    ranks_on_card(n, root, worlds, singles, total, "nccl", RANK_RUNS[:1])
+
+
 def main() -> int:
     try:
         import torch
@@ -1553,6 +1887,18 @@ def main() -> int:
             round_trips(20, root, base_files, fq, out_gpu, nk, launches)
 
         build_path_phases(root, card, idx, base_files, base_genome, sk)
+
+        worlds = {w: (i, head_fastq(f, os.path.join(root, f"{w}_mesh.fq"),
+                                    MESH_READS))
+                  for w, i, f in (("base", idx, fq), ("wide", widx, wfq),
+                                  ("many", nidx, nfq))}
+        with timed(28, "--mesh 1x1 in process"):
+            singles = mesh_in_process(28, root, worlds, card, launches,
+                                      kstats)
+        with timed(29, "two processes on one card over gloo"):
+            ranks_on_card(29, root, worlds, singles, launches, "gloo")
+        with timed(30, "meshes over several cards"):
+            multi_card(30, root, worlds, singles, card, launches)
 
     check(not reference_modules(),
           f"the run imported {reference_modules()}")

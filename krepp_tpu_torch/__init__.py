@@ -1,7 +1,9 @@
 """krepp_tpu_torch: the PyTorch/CUDA port of krepp_tpu.
 
 The JAX package `krepp_tpu` stays the reference; this package reproduces
-its query paths and its index-build path (the device winnower, sdust
+its query paths, its sharded and multi-process query engines
+(`--mesh DATAxSHARD`: parallel/mesh.py, and parallel/multihost.py on
+torch.distributed) and its index-build path (the device winnower, sdust
 masking, the multi-device build) with torch ops on an explicit device, and
 hand-written CUDA kernels for Hopper (sm_90a) in place of the Pallas TPU
 kernels. It never imports JAX and nothing of `krepp_tpu`: the host modules

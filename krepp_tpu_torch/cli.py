@@ -7,6 +7,13 @@ device (default cuda; the host runs only with --device cpu). `index` and
 `sketch` use theirs on three paths only (sdust masking, the device winnower,
 `index --mesh N`); with the native C winnower they run on the host and need
 no card. `inspect` runs on the host and takes no `--device`.
+
+`dist` and `place` take `--mesh DATAxSHARD`: the sharded engine over that
+many devices (the host repeated with --device cpu). With KREPP_NUM_PROCESSES
+or KREPP_COORDINATOR set, `main` first joins a torch.distributed process
+group (parallel/boot.py) and the mesh spans every process: each one takes
+DATA * SHARD / processes cells, and with -o each writes its slice of every
+batch to PATH.rank<r>.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import sys
 import time
 
@@ -135,7 +143,9 @@ def _add_query_opts(sc):
                     help="Chi-square value for the distinguishability test. "
                          "[2.706]")
     sc.add_argument("--mesh", default=None,
-                    help="Device mesh DATAxSHARD (not ported yet).")
+                    help="Device mesh DATAxSHARD for multi-chip querying "
+                         "(e.g. 2x4: reads data-parallel over 2, index "
+                         "row-sharded over 4). [single device]")
     _add_device(sc)
     sm = sc.add_mutually_exclusive_group()
     sm.add_argument("--summarize", dest="summarize", action="store_true",
@@ -196,6 +206,20 @@ def main(argv=None) -> int:
           file=sys.stderr)
     parser = build_parser()
     args = parser.parse_args(argv)
+    if os.environ.get("KREPP_NUM_PROCESSES") or os.environ.get(
+            "KREPP_COORDINATOR"):
+        # a multi-process run: joins before the first CUDA call
+        from .parallel.boot import init_distributed, shutdown_distributed
+
+        init_distributed(device=getattr(args, "device", "cuda"))
+        try:
+            return _run(args)
+        finally:
+            shutdown_distributed()
+    return _run(args)
+
+
+def _run(args) -> int:
     inv = _invocation()
     t0 = time.time()
     print(f"Invocation: {inv}", file=sys.stderr)
@@ -220,12 +244,53 @@ def main(argv=None) -> int:
     return 0
 
 
-def _refuse_mesh(args):
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the sharded and multi-host query engines are not "
-            "ported to krepp_tpu_torch yet (ROADMAP Queue 1, slice 7); "
-            "only `index --mesh N` is")
+def _mh_context():
+    """(rank, number of processes); (0, 1) outside a process group."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _mesh_factory(args):
+    """--mesh DATAxSHARD -> engine factory (None without --mesh).
+
+    One process: ShardedQueryEngine over the first DATA * SHARD devices of
+    --device. In a process group: MultiHostQueryEngine over the mesh laid
+    out in rank order, every process running the same program."""
+    if not args.mesh:
+        return None
+    from .parallel.mesh import parse_mesh
+
+    nd, ns = parse_mesh(args.mesh)
+
+    def factory(dindex, hdist_th):
+        from .parallel.mesh import ShardedQueryEngine, make_query_mesh
+
+        if _mh_context()[1] > 1:
+            from .parallel.multihost import (MultiHostQueryEngine,
+                                             make_global_mesh)
+
+            return MultiHostQueryEngine(
+                dindex, make_global_mesh(nd, ns, args.device), hdist_th)
+        return ShardedQueryEngine(
+            dindex, make_query_mesh(nd, ns, device=args.device), hdist_th)
+
+    return factory
+
+
+def _mh_output(args, sliceable: bool):
+    """Where this process writes: with several processes, -o and a
+    sliceable report, each rank writes its read slice to PATH.rank<r>;
+    otherwise rank 0 writes everything and the others nothing. Returns
+    (path or None for stdout, emit_slice)."""
+    rank, nranks = _mh_context()
+    if nranks <= 1:
+        return args.output_path, None
+    if args.output_path and sliceable:
+        return f"{args.output_path}.rank{rank}", (rank, nranks)
+    return (args.output_path if rank == 0 else os.devnull), None
 
 
 def _make_params(args):
@@ -293,16 +358,18 @@ def cmd_dist(args, inv):
     from .index.artifact import load_index
     from .query.dist import DistConfig, run_dist
 
-    _refuse_mesh(args)
+    factory = _mesh_factory(args)
     di = load_index(args.index_dir)
+    out_path, emit_slice = _mh_output(args, sliceable=not args.summarize)
     cfg = DistConfig(hdist_th=args.hdist_th, chisq_value=args.chisq_value,
                      dist_max=args.dist_max, multi=args.multi,
-                     no_filter=not args.filter, summarize=args.summarize)
+                     no_filter=not args.filter, summarize=args.summarize,
+                     emit_slice=emit_slice)
     stats = {}
-    out = open(args.output_path, "w") if args.output_path else sys.stdout
+    out = open(out_path, "w") if out_path else sys.stdout
     try:
-        n = run_dist(di, args.query, out, inv, cfg, device=args.device,
-                     stats=stats)
+        n = run_dist(di, args.query, out, inv, cfg, engine_factory=factory,
+                     device=args.device, stats=stats)
     finally:
         if out is not sys.stdout:
             out.close()
@@ -317,7 +384,7 @@ def cmd_place(args, inv):
     from .index.artifact import load_index
     from .query.place import PlaceConfig, run_place
 
-    _refuse_mesh(args)
+    factory = _mesh_factory(args)
     di = load_index(args.index_dir)
     qtree = None
     if args.lineage_file:
@@ -331,15 +398,17 @@ def cmd_place(args, inv):
             "Given index lacks a tree and no backbone tree is provided...")
     if args.hdist_th < args.tau:
         raise SystemExit("The threshold tau must be less than --hdist-th!")
+    out_path, emit_slice = _mh_output(args, sliceable=not args.summarize)
     cfg = PlaceConfig(hdist_th=args.hdist_th, chisq_value=args.chisq_value,
                       tau=args.tau, multi=args.multi,
                       no_filter=not args.filter, summarize=args.summarize,
-                      tabular=args.tabular)
+                      tabular=args.tabular, emit_slice=emit_slice)
     stats = {}
-    out = open(args.output_path, "w") if args.output_path else sys.stdout
+    out = open(out_path, "w") if out_path else sys.stdout
     try:
         n = run_place(di, args.query, out, inv, cfg, qtree=qtree,
-                      device=args.device, stats=stats)
+                      engine_factory=factory, device=args.device,
+                      stats=stats)
     finally:
         if out is not sys.stdout:
             out.close()

@@ -36,20 +36,22 @@ from ..params import IndexParams
 from ..tree.newick import Tree
 
 
-def mesh_devices(n: int, device="cuda") -> List:
+def mesh_devices(n: int, device="cuda", what: Optional[str] = None) -> List:
     """The first n devices of kind `device` ("cuda": cuda:0 .. cuda:n-1,
     and fewer than n cards raises naming the count; "cpu": the host n
-    times, which exercises the sharding without a card)."""
+    times, which exercises the sharding without a card). `what` names the
+    request in the errors (default "--mesh n")."""
     import torch
 
+    what = what or f"--mesh {n}"
     dev = resolve_device(device)
     if n < 1:
-        raise ValueError(f"--mesh {n}: the device count must be positive")
+        raise ValueError(f"{what}: the device count must be positive")
     if dev.type == "cpu":
         return [dev] * n
     have = torch.cuda.device_count()
     if have < n:
-        raise RuntimeError(f"--mesh {n} asks for {n} CUDA devices but this "
+        raise RuntimeError(f"{what} asks for {n} CUDA devices but this "
                            f"machine has {have}")
     return [torch.device("cuda", i) for i in range(n)]
 

@@ -45,6 +45,10 @@ class DistConfig:
     summarize: bool = False
     # device batch granularity (output-neutral)
     batch_bp: int = 16384 * 150
+    # multi-process output slicing: (rank, nranks) restricts row emission
+    # to this process's slice of every batch (every process computes the
+    # whole batch; only the emission is divided)
+    emit_slice: Optional[tuple] = None
 
 
 def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
@@ -80,6 +84,12 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
             lr.ratio = engine.compute_ratio_host(lr)
         if len(lr.lengths) != len(names_b):   # drop batch padding reads
             lr = _slice_results(lr, 0, len(names_b))
+        if cfg.emit_slice:
+            rank, nranks = cfg.emit_slice
+            B = len(names_b)
+            lo, hi = rank * B // nranks, (rank + 1) * B // nranks
+            lr = _slice_results(lr, lo, hi)
+            names_b = names_b[lo:hi]
         _report_batch(lr, names_b, leaf_names, cfg, out, wcount)
 
     batch_bp = min(cfg.batch_bp, engine.suggested_batch_reads() * 150)
@@ -106,15 +116,16 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
     return total
 
 
-def _pad_batch(codes: np.ndarray, lengths: np.ndarray, mult: int):
+def _pad_batch(codes: Optional[np.ndarray], lengths: np.ndarray, mult: int):
     """Pad the batch (with zero-length reads) to a multiple of an engine's
-    data-parallel width; callers slice results back to the real count."""
-    B = codes.shape[0]
-    if mult <= 1 or B % mult == 0:
+    data-parallel width (codes may be None); callers slice results back to
+    the real count."""
+    padn = (-len(lengths)) % mult
+    if padn == 0:
         return codes, lengths
-    padn = mult - B % mult
-    codes = np.concatenate(
-        [codes, np.full((padn, codes.shape[1]), 4, codes.dtype)])
+    if codes is not None:
+        codes = np.concatenate(
+            [codes, np.full((padn, codes.shape[1]), 4, codes.dtype)])
     lengths = np.concatenate([lengths, np.zeros(padn, lengths.dtype)])
     return codes, lengths
 

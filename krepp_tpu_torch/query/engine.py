@@ -15,7 +15,8 @@ mask words), 'embed' and 'se' bucket rows, any read length and any
 hdist_th; CSR mode when no bucket-row table fits DIRECT_MEM_CAP; and
 event mode for indexes without bitmasks (more than 256 leaves): 'se'
 bucket rows probed through query/event_probe.py and joined into stage-2
-lanes with no [B, S] array, which runs no epilogue kernel.
+lanes with no [B, S] array, which runs no epilogue kernel. The sharded
+engines (parallel/mesh.py) reuse the probe bodies per shard.
 
 Host syncs per step (a step does not run fully asynchronously): the heavy
 tail's deepest-bucket count (when buckets exceed the heavy table; in CSR
@@ -41,7 +42,7 @@ from ..core.llh import (F, brent_find_minima, brent_on_mask, make_llh,
 from ..index.index import DeviceIndex, DeviceSketch
 from .bucket_scan import (_scan_loop, make_expander, probe_strand,
                           probe_strand_full, scan_buckets_min)
-from .event_probe import event_probe_lanes, heavy_id
+from .event_probe import event_probe, event_probe_lanes, heavy_id
 from .kernels import (HD_SENTINEL, MAX_P, MAX_S, MAX_X, probe_hist_packed,
                       probe_hist_tiles)
 
@@ -244,9 +245,11 @@ class QueryEngine:
                else torch.from_numpy(di.row_ids.astype(np.int64)).to(dev))
         nrows_dense = di.nrows_u if di.row_ids is None else None
         self.C0 = min(DENSE_SLOTS, max(1, di.max_bucket))
+        self._lane_form = False
         if di.se_mask is None or FORCE_EVENT:
             self.mode = "event"
             self.hflavor = "se"
+            self._lane_form = True
             _check_leaf_ranges(di)
             slots, _ = build_hybrid_slots(
                 di.row_start, di.enc_v, di.se_v, None, nrows_dense,
@@ -254,8 +257,8 @@ class QueryEngine:
             if slots is None:
                 raise RuntimeError(
                     "the event probe's bucket-row table exceeds "
-                    f"DIRECT_MEM_CAP ({DIRECT_MEM_CAP} bytes); the index "
-                    "needs the sharded engine (ROADMAP Queue 1, slice 7)")
+                    f"DIRECT_MEM_CAP ({DIRECT_MEM_CAP} bytes) on one device; "
+                    "shard the index over N devices with --mesh 1xN")
             heavy_tab = None
             if di.max_bucket > self.C0:
                 heavy_tab = self._build_heavy_tab(di, slots)
@@ -537,14 +540,31 @@ class QueryEngine:
         return (hist[0], hist[1], minall[0], minall[1], onmers,
                 torch.zeros((), dtype=torch.bool, device=codes.device))
 
+    def _probe_event(self, tables, codes, lengths, tier: int):
+        """Dense event probe (event_probe.py): the 6-tuple of the other
+        modes, with a [2B, S, X] histogram; exact up to its caps."""
+        (slots_d, enc_se, row_start, row_ids, leaf_off, leaf_slots,
+         heavy_tab) = tables
+        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+        urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
+        sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
+        B, P = codes.shape[0], urow.shape[2]
+        E, KH, CAP_L = self._event_caps(B, P, tier)
+        hist, minall, ov = event_probe(
+            slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
+            resident, res2, self.th, self.C0, self.S, self.di.max_bucket, E,
+            KH, CAP_L, heavy_tab=heavy_tab)
+        hist = hist.reshape(2, B, self.S, self.th + 1)
+        minall = minall.reshape(2, B)
+        return (hist[0], hist[1], minall[0], minall[1], onmers, ov)
+
     def _probe_impl(self, tables, codes, lengths, exact: bool = False,
                     tier: int = 0):
-        """(hist_or, hist_rc, minall_or, minall_rc, onmers, overflow)."""
+        """(hist_or, hist_rc, minall_or, minall_rc, onmers, overflow).
+        Event mode's "exact" is a capacity tier >= 2."""
         if self.mode == "event":
-            raise NotImplementedError(
-                "event mode probes in lane form only (_probe_and_lanes); "
-                "the dense event probe serves the sharded engine (ROADMAP "
-                "Queue 1, slice 7)")
+            return self._probe_event(tables, codes, lengths,
+                                     max(tier, 2) if exact else tier)
         csr = tables if self.mode == "csr" else tables[1:5]
         if exact:
             return self._probe_csr_exact(csr, codes, lengths)
@@ -659,9 +679,10 @@ class QueryEngine:
         """Probe + lane extraction -> (L dict, onmers, probe_overflow).
 
         Event mode stays in lane form end to end (_event_lanes); the other
-        modes probe dense histograms and run stage 2 on K = min(B*S,
-        lane_cap) lanes extracted from them (lane_cap None: all B*S)."""
-        if self.mode == "event":
+        modes (and the sharded engine's dense event probe) probe dense
+        histograms and run stage 2 on K = min(B*S, lane_cap) lanes
+        extracted from them (lane_cap None: all B*S)."""
+        if self._lane_form:
             return self._event_lanes(tables, codes, lengths, leaf_ok,
                                      lane_cap, exact, tier)
         probe_out = self._probe_impl(tables, codes, lengths, exact, tier)
@@ -886,7 +907,7 @@ class QueryEngine:
         state (and the stage-3 per-(read, tree-node) state for place) under
         ~1 GB. Event-mode dist never materialises [B, S] beyond a present
         bitmap, so its batches are bounded by lane capacities instead."""
-        if self.mode == "event" and not place:
+        if self._lane_form and not place:
             return min(32768, max(256, (1 << 30) // (32 * max(self.S, 1))))
         per_read = (256 if place else 128) * max(self.S, 1)
         return max(256, (1 << 30) // per_read)

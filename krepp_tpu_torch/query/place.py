@@ -40,7 +40,7 @@ from ..core.llh import F, brent_on_mask, make_llh_np
 from ..index.index import DeviceIndex, PlacementView
 from ..io import native_report
 from ..io.fastx import QueryBatcher
-from .dist import IN_FLIGHT, _bucket_len
+from .dist import IN_FLIGHT, _bucket_len, _pad_batch
 from .engine import D_MAX, LeafResults, QueryEngine
 
 # Stage-3 formulation threshold: dense damping-weight einsums while the
@@ -64,6 +64,8 @@ class PlaceConfig:
     summarize: bool = False
     tabular: bool = False
     batch_bp: int = 16384 * 150
+    # multi-process output slicing, as DistConfig.emit_slice
+    emit_slice: Optional[tuple] = None
 
 
 class PlaceAggregator:
@@ -457,10 +459,12 @@ def run_place(dindex: DeviceIndex, query_path: str, out: TextIO,
 
     batch_bp = min(cfg.batch_bp,
                    engine.suggested_batch_reads(place=True) * 150)
+    mult = getattr(engine, "n_data", 1)
     for names, seqs in QueryBatcher(query_path, bp_limit=batch_bp):
         total += len(names)
         codes, lengths = codec.pad_codes_batch(
             seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
+        codes, lengths = _pad_batch(codes, lengths, mult)
         pending.append((names, lengths, codes,
                         agg.run_place_async(codes, lengths, leaf_ok)))
         if len(pending) >= IN_FLIGHT:
@@ -486,7 +490,8 @@ def flush_place_batch(agg: PlaceAggregator, fetched, names_b, lengths_b,
                       pv: PlacementView, cfg: PlaceConfig, out: TextIO,
                       wcount: np.ndarray, has_previous: bool) -> bool:
     """Host half of one fused place batch: unpack the fetched tuple,
-    chi-square the compacted candidate lanes, emit the report."""
+    chi-square the compacted candidate lanes, drop the batch's padding
+    reads, keep this process's slice (cfg.emit_slice), emit the report."""
     (n_pres, best_slot, best_d, hist_c, uc_c, rho_c, v_c,
      cand_key, cand_d, cand_v, n_cand, onmers, _ov) = fetched
     m = min(int(n_cand), len(cand_key))
@@ -497,6 +502,18 @@ def flush_place_batch(agg: PlaceAggregator, fetched, names_b, lengths_b,
     cd = np.asarray(cand_d[:m])
     cv = np.asarray(cand_v[:m])
     chisq_c = agg.chisq_cand_host(cb, cd, hist_c, uc_c, rho_c, v_c)
+    lo, hi = 0, len(names_b)
+    if cfg.emit_slice:
+        rank, nranks = cfg.emit_slice
+        lo, hi = rank * hi // nranks, (rank + 1) * hi // nranks
+    if (lo, hi) != (0, len(n_pres)):
+        keep = (cb >= lo) & (cb < hi)
+        cb, cq, cd, cv, chisq_c = (cb[keep] - lo, cq[keep], cd[keep],
+                                   cv[keep], chisq_c[keep])
+        n_pres, best_slot, best_d, hist_c, uc_c, rho_c, v_c, onmers = (
+            x[lo:hi] for x in (n_pres, best_slot, best_d, hist_c, uc_c,
+                               rho_c, v_c, onmers))
+        names_b, lengths_b = names_b[lo:hi], lengths_b[lo:hi]
     lr = LeafResults(
         present=None, d=None, closest_slot=best_slot,
         closest_d=best_d, hist_closest=hist_c, uc_closest=uc_c,

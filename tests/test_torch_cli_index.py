@@ -268,10 +268,12 @@ def test_index_mesh_with_sdust_raises_naming_both_flags(long_world, tmp_path):
 
 
 def test_index_mesh_and_device_errors_name_what_is_missing(world, tmp_path,
-                                                            monkeypatch):
+                                                            monkeypatch,
+                                                            capsys):
     """No path falls back: the device winnower and --mesh on the default
     device raise without a card, --mesh N names the count of cards, and
-    the query commands still refuse --mesh."""
+    so does the query commands' --mesh DATAxSHARD, which runs on the host
+    with --device cpu and refuses a malformed spec."""
     monkeypatch.setenv("KREPP_DEVICE_WINNOW", "1")
     argv = _index_argv(world, tmp_path / "x", ["-t"])
     if not torch.cuda.is_available():
@@ -284,10 +286,23 @@ def test_index_mesh_and_device_errors_name_what_is_missing(world, tmp_path,
                                            "but this machine has 1"):
         cli.main(argv + ["--mesh", "2"])
     assert not os.path.exists(tmp_path / "x" / "meta.json")
+    monkeypatch.delenv("KREPP_DEVICE_WINNOW")
+    assert cli.main(_index_argv(world, tmp_path / "idx", ["-t"])) == 0
+    query = ["-q", str(world / "q.fq"), "-i", str(tmp_path / "idx")]
     for cmd in ("dist", "place"):
-        with pytest.raises(NotImplementedError, match="query engines"):
-            cli.main([cmd, "-q", str(world / "q.fq"), "-i", "unused",
-                      "--mesh", "1x2", "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="--mesh 1x2 asks for 2 CUDA "
+                                               "devices but this machine "
+                                               "has 1"):
+            cli.main([cmd, *query, "--mesh", "1x2"])
+        for spec in ("2x", "0x1"):
+            with pytest.raises(SystemExit, match="DATAxSHARD"):
+                cli.main([cmd, *query, "--mesh", spec, "--device", "cpu"])
+        capsys.readouterr()
+        outs = []
+        for mesh in ([], ["--mesh", "1x2"]):
+            assert cli.main([cmd, *query, *mesh, "--device", "cpu"]) == 0
+            outs.append(capsys.readouterr().out)
+        assert outs[0] == outs[1] and outs[0].count("\n") > 10
 
 
 # ------------------------------------------------------------------ loading

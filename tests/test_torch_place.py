@@ -391,11 +391,21 @@ def test_cli_place_matches_the_reference_cli(cli_world, args):
     assert len(masked(got.stdout)) > 10
 
 
-def test_cli_place_validates_like_the_reference(cli_world):
+def test_cli_place_validates_like_the_reference(cli_world, capsys):
+    """The reference's checks; `--mesh 1x2 --device cpu` places as one
+    device does, and a malformed --mesh exits with a message."""
     idx = str(cli_world / "idx")
     q = str(cli_world / "q.fq")
     with pytest.raises(SystemExit, match="tau must be less"):
         cli.main(["place", "-q", q, "-i", idx, "--tau", "5", "--device",
                   "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        cli.main(["place", "-q", q, "-i", idx, "--mesh", "1x2"])
+    with pytest.raises(SystemExit, match="DATAxSHARD"):
+        cli.main(["place", "-q", q, "-i", idx, "--mesh", "1x", "--device",
+                  "cpu"])
+    capsys.readouterr()
+    outs = []
+    for mesh in ([], ["--mesh", "1x2"]):
+        assert cli.main(["place", "-q", q, "-i", idx, *mesh, "--device",
+                         "cpu"]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and len(json.loads(outs[1])["placements"]) > 5

@@ -1,0 +1,272 @@
+"""Port ShardedQueryEngine vs the port's single-device engine and
+krepp_tpu's ShardedQueryEngine (on the conftest's 8 virtual CPU devices):
+dense (h = 11) and sparse (h = 13) row spaces at meshes (1, 8), (2, 4) and
+(8, 1), in hybrid, CSR, event-lane and dense-event modes, a tier re-run
+forced through the heavy cap, a natural many-genome (no bitmask) world,
+the dense event probe against the reference's, the per-tier resident cap
+the port keeps where the reference's sharded lanes do not, and `--mesh`
+through the CLI on the host. Integers equal, `d` within 5e-9."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from krepp_tpu import testing as jtesting
+from krepp_tpu.index.index import DeviceIndex as JDeviceIndex
+from krepp_tpu.parallel import mesh as jmesh
+from krepp_tpu.query import engine as jengine
+from krepp_tpu_torch import cli
+from krepp_tpu_torch.index.index import DeviceIndex
+from krepp_tpu_torch.parallel import boot
+from krepp_tpu_torch.parallel.mesh import (ShardedQueryEngine,
+                                           make_query_mesh, parse_mesh)
+from krepp_tpu_torch.query import engine
+
+from test_torch_engine import _assert_tuple_equal
+from test_torch_event import _assert_leaf_equal
+
+torch.set_num_threads(1)
+
+MESHES = [(1, 8), (2, 4), (8, 1)]
+WORLDS = {
+    # tests/test_sharded.py's two row spaces
+    "h11-dense": dict(seed=31, nleaves=6, glen=1500, k=27, h=11, m=4),
+    "h13-sparse": dict(seed=31, nleaves=6, glen=1500, k=29, h=13, m=4),
+    # buckets up to 9 deep: the CSR tail and the E-slot loop run
+    "deep": dict(seed=9, nleaves=8, glen=12000, k=23, h=7, w=29, m=2,
+                 rate=0.02),
+}
+FIELDS = ("present", "hist", "closest_slot", "onmers", "d", "match",
+          "closest_d", "hist_closest", "uc_closest", "v_closest")
+_CACHE = {}
+
+
+def _world(name):
+    if name not in _CACHE:
+        built, genomes, _ = jtesting.build_world_index(**WORLDS[name])
+        rng = np.random.default_rng(32)
+        # 11 reads: a batch that no mesh of 2 or 8 data rows divides
+        codes = jtesting.sample_read_codes(rng, genomes, 11, rlen=150,
+                                           mut=0.05)
+        codes[0, 40:44] = 4
+        lengths = np.full(11, 150, np.int32)
+        lengths[2] = 101
+        _CACHE[name] = (JDeviceIndex.from_built(built), codes, lengths)
+    return _CACHE[name]
+
+
+def _leaf_stage(eng, codes, lengths, out_mode="full"):
+    return eng.fetch_leaf_stage(
+        eng.run_leaf_stage_async(codes, lengths, out_mode=out_mode), lengths,
+        codes=codes, out_mode=out_mode)
+
+
+def _engines(name, mesh, mode, monkeypatch):
+    """(port single-device engine, port sharded engine) in `mode`."""
+    jdi, codes, lengths = _world(name)
+    if mode == "csr":
+        monkeypatch.setattr(engine, "DIRECT_MEM_CAP", 0)
+    if mode in ("event", "dense"):
+        monkeypatch.setattr(engine, "FORCE_EVENT", True)
+    if mode == "dense":
+        monkeypatch.setenv("KREPP_SHARD_DENSE", "1")
+    di = DeviceIndex.from_reference(jdi)
+    single = engine.QueryEngine(di, 4, device="cpu")
+    sharded = ShardedQueryEngine(di, make_query_mesh(*mesh, device="cpu"), 4)
+    want = {"hybrid": "hybrid", "csr": "csr"}.get(mode, "event")
+    assert single.mode == sharded.mode == want
+    assert sharded._lane_form == (mode == "event")
+    return single, sharded, codes, lengths
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("mode", ["hybrid", "csr", "event", "dense"])
+@pytest.mark.parametrize("name", ["h11-dense", "h13-sparse"])
+def test_sharded_equals_single_device(name, mode, mesh, monkeypatch):
+    single, sharded, codes, lengths = _engines(name, mesh, mode, monkeypatch)
+    assert (sharded._rowmap(torch.device("cpu")) is not None
+            and sharded._dense_space == (name == "h11-dense"))
+    want = _leaf_stage(single, codes, lengths)
+    got = _leaf_stage(sharded, codes, lengths)
+    _assert_leaf_equal(want, got, FIELDS)
+    assert got.present.sum() > 10 and got.closest_slot.shape == (11,)
+    # the compact dist fetch too
+    _assert_leaf_equal(_leaf_stage(single, codes, lengths, "dist_ratio"),
+                       _leaf_stage(sharded, codes, lengths, "dist_ratio"),
+                       ("present", "d", "closest_slot", "hist_closest"))
+
+
+@pytest.mark.parametrize("name,mesh", [("h11-dense", (2, 4)),
+                                       ("h13-sparse", (1, 8))])
+def test_sharded_equals_the_reference_sharded_engine(name, mesh,
+                                                     monkeypatch):
+    """The port's sharded engine against krepp_tpu's ShardedQueryEngine on
+    the conftest's 8 virtual CPU devices, in hybrid and event-lane mode."""
+    assert len(jax.devices()) >= 8
+    jdi, codes, lengths = _world(name)
+    for event in (False, True):
+        if event:
+            monkeypatch.setenv("KREPP_EVENT_PROBE", "1")
+            monkeypatch.setattr(engine, "FORCE_EVENT", True)
+        je = jmesh.ShardedQueryEngine(jdi, jmesh.make_query_mesh(*mesh), 4)
+        te = ShardedQueryEngine(DeviceIndex.from_reference(jdi),
+                                make_query_mesh(*mesh, device="cpu"), 4)
+        assert je.mode == te.mode == ("event" if event else "hybrid")
+        want = je.run_leaf_stage(codes, lengths)
+        got = _leaf_stage(te, codes, lengths)
+        _assert_leaf_equal(want, got, FIELDS)
+
+
+def test_deep_buckets_and_a_forced_tier_rerun(monkeypatch):
+    """9-deep buckets through every mode's tail; a heavy cap of one lane
+    overflows tier 0 and the batch re-runs to the single-device result."""
+    jdi, codes, lengths = _world("deep")
+    di = DeviceIndex.from_reference(jdi)
+    want = _leaf_stage(engine.QueryEngine(di, 4, device="cpu"), codes,
+                       lengths)
+    for mode in ("hybrid", "event", "dense"):
+        single, sharded, _, _ = _engines("deep", (2, 4), mode, monkeypatch)
+        _assert_leaf_equal(want, _leaf_stage(sharded, codes, lengths),
+                           FIELDS)
+        assert sharded.escalations == 0
+    monkeypatch.undo()
+    _, sharded, _, _ = _engines("deep", (2, 4), "hybrid", monkeypatch)
+    sharded._heavy_cap_override = 1
+    _assert_leaf_equal(want, _leaf_stage(sharded, codes, lengths), FIELDS)
+    assert sharded.escalations >= 1
+
+
+def test_many_genome_world_in_both_event_forms(monkeypatch):
+    """A world without bitmasks (300 genomes > 8 mask words), as
+    tests/test_sharded.py's: the lane form and the dense form across
+    shards equal the single-device event lanes."""
+    built, genomes, _ = jtesting.build_world_index(
+        seed=47, nleaves=300, glen=400, rate=0.08, k=29, h=13, m=4)
+    di = DeviceIndex.from_reference(JDeviceIndex.from_built(built))
+    assert di.se_mask is None
+    codes = jtesting.sample_read_codes(np.random.default_rng(48), genomes,
+                                       13, rlen=120, mut=0.04)
+    lengths = np.full(13, 120, np.int32)
+    want = _leaf_stage(engine.QueryEngine(di, 4, device="cpu"), codes,
+                       lengths)
+    assert want.present.sum() > 10
+    for dense in (False, True):
+        if dense:
+            monkeypatch.setenv("KREPP_SHARD_DENSE", "1")
+        eng = ShardedQueryEngine(di, make_query_mesh(2, 4, device="cpu"), 4)
+        assert eng.mode == "event" and eng._lane_form != dense
+        _assert_leaf_equal(want, _leaf_stage(eng, codes, lengths), FIELDS)
+
+
+@pytest.mark.parametrize("name", ["deep", "h13-sparse"])
+def test_dense_event_probe_matches_the_reference(name, monkeypatch):
+    """The port's dense event probe (`_probe_impl` in event mode, through
+    event_probe.event_probe with the heavy table's count words) against
+    krepp_tpu's `_probe_event` on the same index and reads; then a cap of
+    E = 1 match a probe overflows in both."""
+    jdi, codes, lengths = _world(name)
+    monkeypatch.setenv("KREPP_EVENT_PROBE", "1")
+    je = jengine.QueryEngine(jdi, hdist_th=4)
+    monkeypatch.setattr(engine, "FORCE_EVENT", True)
+    te = engine.QueryEngine(DeviceIndex.from_reference(jdi), 4, device="cpu")
+    c, ln = jax.numpy.asarray(codes), jax.numpy.asarray(lengths)
+    tc, tl = torch.from_numpy(codes.astype(np.int32)), torch.from_numpy(
+        lengths)
+    for one_slot in (False, True):
+        if one_slot:
+            caps = te._event_caps
+            je._event_caps = te._event_caps = \
+                lambda B, P, tier: (1,) + caps(B, P, tier)[1:]
+        want = jax.device_get(jax.jit(
+            lambda t, a, b: je._probe_event(t, a, b, 0))(je._tables, c, ln))
+        got = tuple(x.numpy() for x in te._probe_impl(te._tables, tc, tl))
+        _assert_tuple_equal(want, got)
+        assert got[0].sum() > 0
+        assert bool(got[-1]) == one_slot or name != "deep"
+
+
+def test_shard_resident_cap_grows_by_tier(monkeypatch):
+    """The reference's sharded lanes keep one resident cap at every tier
+    (mesh.py:349-350), so a batch that overflows it overflows every re-run;
+    the port's grows 4x a tier. A tier-0 cap forced to 1,024 lanes
+    overflows and the re-run recovers the single-device result."""
+    single, sharded, codes, lengths = _engines("h11-dense", (1, 8), "event",
+                                               monkeypatch)
+    N = 1 << 24
+    c0, c1 = (sharded._shard_resident_cap(N, t) for t in (0, 1))
+    assert c0 < c1 == min(N, 4 * c0) and sharded._shard_resident_cap(
+        N, 3) == N
+    monkeypatch.setattr(sharded, "_shard_resident_cap",
+                        lambda n, tier: min(n, 16 << (2 * tier)))
+    _assert_leaf_equal(_leaf_stage(single, codes, lengths),
+                       _leaf_stage(sharded, codes, lengths), FIELDS)
+    assert sharded.escalations >= 2
+
+
+def test_event_tables_over_the_cap_shard_or_name_the_remedy(monkeypatch):
+    """An event-mode bucket-row table over DIRECT_MEM_CAP: one device
+    raises naming `--mesh 1xN`, one shard raises asking for more shards
+    (the reference's assertion, mesh.py:77, never fires: its forced 'se'
+    flavor builds a table of any size), and eight shards, each under the
+    cap, give the single-device result."""
+    single, _, codes, lengths = _engines("h11-dense", (1, 1), "event",
+                                         monkeypatch)
+    want = _leaf_stage(single, codes, lengths)
+    di = single.di
+    full = di.nrows_u * (1 + 2 * single.C0) * 4
+    monkeypatch.setattr(engine, "DIRECT_MEM_CAP", full // 2)
+    with pytest.raises(RuntimeError, match="with --mesh 1xN"):
+        engine.QueryEngine(di, 4, device="cpu")
+    with pytest.raises(RuntimeError, match="use more shards than 1"):
+        ShardedQueryEngine(di, make_query_mesh(1, 1, device="cpu"), 4)
+    sharded = ShardedQueryEngine(di, make_query_mesh(1, 8, device="cpu"), 4)
+    assert sharded.mode == "event"
+    _assert_leaf_equal(want, _leaf_stage(sharded, codes, lengths), FIELDS)
+
+
+def test_mesh_specs_and_counts_are_checked(monkeypatch, tmp_path):
+    """Bad --mesh specs exit with a message; --mesh on the card with too
+    few cards names the count; two NCCL ranks on one card raise before
+    any process group, never hanging; nothing falls back."""
+    for spec in ("2x", "0x1", "2x4x1", "ax2"):
+        with pytest.raises(SystemExit, match="DATAxSHARD"):
+            parse_mesh(spec)
+        with pytest.raises(SystemExit, match="DATAxSHARD"):
+            cli.main(["dist", "-q", "q.fq", "-i", "unused", "--mesh", spec,
+                      "--device", "cpu"])
+    assert parse_mesh("2x4") == (2, 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--mesh 1x2 asks for 2 CUDA "
+                                           "devices but this machine has 1"):
+        make_query_mesh(1, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="2 NCCL ranks need 2 CUDA devices "
+                                           "but this machine has 1"):
+        boot.init_distributed("localhost:1", 2, 1, backend="nccl")
+    assert boot.rank_devices(1, 2, 1) == [0]
+    assert boot.rank_devices(1, 2, 4) == [2, 3]
+    assert make_query_mesh(2, 2, device="cpu").own()[-1][:2] == (1, 1)
+
+
+def test_cli_mesh_runs_on_the_host(tmp_path, capsys):
+    """`dist` / `place --mesh 1x2 --device cpu` print the single-device
+    output; `--mesh 1x2` on a card this machine lacks raises."""
+    from krepp_tpu_torch import testing as ttesting
+    from krepp_tpu_torch.index.artifact import save_native
+
+    built, genomes, _ = ttesting.build_world_index(**WORLDS["h13-sparse"])
+    save_native(built, str(tmp_path / "idx"))
+    ttesting.write_fastq(str(tmp_path / "q.fq"), _world("h13-sparse")[1])
+    base = ["-q", str(tmp_path / "q.fq"), "-i", str(tmp_path / "idx"),
+            "--device", "cpu"]
+    for cmd in (["dist"], ["place", "--tabular"], ["place"]):
+        out = {}
+        for mesh in ([], ["--mesh", "1x2"], ["--mesh", "2x1"]):
+            assert cli.main(cmd + base + mesh) == 0
+            out[len(out)] = capsys.readouterr().out.splitlines()[1:]
+        assert out[0] == out[1] == out[2] and len(out[0]) > 11
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main(["dist"] + base[:-2] + ["--mesh", "1x2"])

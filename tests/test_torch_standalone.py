@@ -105,6 +105,10 @@ dist = run(["dist", "-q", "q.fq", "-i", "idx", "--device", "cpu"])
 same = [run(["dist", "-q", "q.fq", "-i", d, "--device", "cpu"])
         .splitlines()[1:] == dist.splitlines()[1:] for d in ("parts", "ref")]
 place = run(["place", "-q", "q.fq", "-i", "idx", "--device", "cpu"])
+# the sharded query engine on the host repeated (parallel/mesh.py)
+mesh_query = [run([cmd, "-q", "q.fq", "-i", "idx", "--mesh", "2x2", "--device",
+                   "cpu"]) == want for cmd, want in (("dist", dist),
+                                                     ("place", place))]
 run(["sketch", "-i", "g0.fna", "-o", "g0.sk", "-k", "26"])
 # the device paths of `index` and `sketch`: sdust masking, the device
 # winnower (the same files as the C winnower's), the multi-device build
@@ -142,6 +146,8 @@ inspect = run(["inspect", "-i", "idx"])
 loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 print(json.dumps(dict(
     modules=len(mods), loaded=loaded, same=same, device_paths=device_paths,
+    mesh_query=mesh_query,
+    parallel=sorted(m for m in mods if m.startswith("krepp_tpu_torch.parallel.")),
     files=sorted(os.listdir("idx")),
     dist_rows=len(dist.splitlines()) - 2, dist_head=dist.splitlines()[1],
     placements=len(json.loads(place)["placements"]),
@@ -169,6 +175,9 @@ def test_port_runs_end_to_end_with_the_reference_and_jax_blocked(tmp_path):
     assert paths["sketch"] and paths["index"] and paths["mesh"]
     assert paths["sdust_kmers"] > 500 and paths["sdust_sketch"] > 1000
     assert got["modules"] >= 36          # parallel/ and the new core modules
+    assert got["mesh_query"] == [True, True]
+    assert got["parallel"] == ["krepp_tpu_torch.parallel." + m for m in
+                               ("boot", "build", "mesh", "multihost")]
     assert {"meta.json", "arrays.npz", "tree.nwk", "reflist.txt",
             "cmer-m2r1-frac", "crecord-m2r1-frac"} <= set(got["files"])
 
