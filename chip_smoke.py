@@ -68,7 +68,8 @@ checks them:
  14. the same on the wide index: the lane formulation, through
      probe_hist_tiles; host check on the first 1,024 reads;
  15. place reads/s on base and wide (warm-up + 3 timed passes) and one
-     profiled place pass on wide;
+     profiled place pass on wide (its first 16,384 reads, cut from 65,536
+     for the time limit);
  16. many world: bench.py's "1k" configuration at full size (seed 13,
      1,000 genomes x 250 kbp, k=29 h=13 w=35 m=4): no bitmask table, so
      the event probe; 65,536 reads; dist through the CLI on cuda (mode
@@ -76,11 +77,13 @@ checks them:
      against the host, reads/s (warm-up + 3 timed passes, with tier
      re-runs per pass and peak device memory) and one profiled pass;
  17. place on the many index the same way: the lane formulation, host
-     check on the first 1,024 reads, reads/s and one profiled pass;
+     check on the first 1,024 reads, reads/s and one profiled pass (of
+     the first 16,384 reads, cut from 65,536 for the time limit);
  18. seek: `sketch` of one generated 5 Mbp genome at the sketch defaults
      (k=26 h=10 w=32 m=4) through the CLI, `seek` of 65,536 reads at 5%
      mutation through the CLI on cuda, the first 2,048 reads against the
-     host, reads/s (warm-up + 3 timed passes);
+     host, reads/s (warm-up + 3 timed passes of the first 16,384 reads,
+     cut from 65,536 for the time limit);
  19. inspect of the base index through the CLI: its framing, and the
      k-mer count its color histogram sums to;
  20. index round trips: base's two --no-frac partials (-r 0, -r 1,
@@ -107,10 +110,10 @@ checks them:
  25. `index --mesh 1 --device cuda` on base (and `--mesh N` where the
      machine has N > 1 cards): phase 4's directory again; one card too many
      raises naming the count;
- 26. sdust: 4 genomes x 50 kbp with planted homopolymers and tandem
-     repeats, `index --sdust-t 20 --sdust-w 64` with --device cuda and with
-     --device cpu: the same directory; k-mers masked against the unmasked
-     build;
+ 26. sdust: 4 genomes x 25 kbp (cut from 50 kbp for the time limit)
+     with planted homopolymers and tandem repeats, `index --sdust-t 20
+     --sdust-w 64` with --device cuda and with --device cpu: the same
+     directory; k-mers masked against the unmasked build;
  27. a window wider than the C winnower's (w = 4200, ldiff 4174) on two
      1 Mbp genomes (one tile each, 13 doubling passes, some hundreds of
      k-mers), --device cuda against --device cpu: the same directory.
@@ -133,11 +136,45 @@ checks them:
  30. on a machine with N >= 2 cards: wide and many dist with `--mesh 1xN`
      and `2x(N/2)` in process (byte for byte, warm reads/s of 1xN beside
      1x1) and wide dist in two NCCL processes, a card each; on one card
-     a line says it was skipped.
+     a line says it was skipped;
+ 31. CSR mode (DIRECT_MEM_CAP set to 0 in the port's query engine for the
+     phase): wide dist and place on the first 16,384 reads, one device and
+     --mesh 1x1, each in mode csr with no epilogue kernel, byte for byte
+     phase 28's hybrid-mode report, the first 1,024 reads against the
+     host in CSR mode too; warm reads/s of CSR beside hybrid mode, passes
+     in turn; seek in its CSR mode on 16,384 reads against the host and
+     the direct table's rows, reads/s on 4,096 beside the direct table's;
+ 32. the overflow ladder: QueryEngines with a test hook forcing a capacity
+     low (`_heavy_cap_override` = 1, `_lane_cap_override` = 16) drive
+     run_dist / run_place on 16,384 reads of base (probe_hist_packed) and
+     wide (probe_hist_tiles), and many dist in event mode: re-runs happen,
+     the ladder ends where it must (run_exact, the uncapped lanes, or
+     place's exact probe at tier 1; many: it completes), the report is the
+     un-forced engine's byte for byte; the epilogue launches of each step
+     and the seconds against the un-forced run;
+ 33. the query options on the base index, the first 4,096 reads: dist
+     --no-multi, --filter, --dist-max 0.05; place -t (a pruned tree), -l
+     (a lineage file of the base genomes, also with --tabular),
+     --summarize, --tabular, --tau 3, --no-multi, --no-filter; each on
+     cuda (probe_hist_packed) and --device cpu: the same rows / edges;
+     place --summarize on many's first 1,024 reads the same way;
+ 34. huge world: bench.py's "1k" parameters at 10,000 genomes x 50 kbp
+     (seed 37; 250 kbp cut to 50 kbp and 65,536 reads to 16,384 for the
+     time limit): built in process (generation, build, the tree work of
+     the build again alone, the host's peak RSS), dist and place through
+     the CLI on cuda in event mode with no epilogue kernel; then on one
+     loaded index: the first 1,024 reads on the host (the same rows and
+     edges), the stage-3 set-up against the dense weight grid it no longer
+     builds, reads/s (warm-up + 3 timed passes; dist on the 16,384 reads,
+     with fetch_prefetched's host time, place on the first 4,096: tier
+     re-runs, batches, peak device memory) and one profiled pass each on
+     the first 2,048 (dist) and 1,024 (place), and dist through
+     ShardedQueryEngine 1x1 (1xN on N cards) byte for byte the CLI's
+     one-device report.
 
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
-before the last is the kernels JSON (launches: counted over the CLI runs on
-cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18, 20 and 28-30, the ranks
+before the last is the kernels JSON (launches: counted over the runs on
+cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18, 20 and 28-34, the ranks
 of other processes included, and for dma_gather over the microbenchmark of
 phase 12; the build path of phases 22-27 runs torch ops and no hand-written
 kernel, which phases 23-27 check; ms, plain_ms, bound_ms and library_ms at
@@ -184,8 +221,10 @@ MANY_READS = 65536
 SEEK_SEED = 19
 SEEK_GLEN = 5_000_000
 SEEK_READS = 65536
+SEEK_TIMED_READS = 16384      # seek's timed passes, cut from 65,536
+SEEK_RATE_READS = 4096        # CSR mode's and the direct table's, in turn
 SEEK_KMERS = 624980                           # PERF.md section 4
-SDUST = dict(seed=23, nleaves=4, glen=50_000, rate=0.05, k=27, h=11, w=35,
+SDUST = dict(seed=23, nleaves=4, glen=25_000, rate=0.05, k=27, h=11, w=35,
              m=4)
 SDUST_FLAGS = ["--sdust-t", "20", "--sdust-w", "64"]   # NCBI dustmasker's
 WINDOW = dict(seed=29, nleaves=2, glen=1_000_000, rate=0.05, k=27, h=11,
@@ -212,6 +251,38 @@ REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
     "dma_gather": "tools/probe_microbench.py:157",
 }
 MESH_READS = 16384            # reads a world in the sharded phases 28-30
+# reads of the profiled place passes of phases 15 and 17, cut from 65,536:
+# the time to read a profile grows with its ~10^5 launches
+PROFILE_PLACE_READS = 16384
+# (world, command, engine hook, value, where the ladder must end, epilogue
+# kernel) of the forced overflow runs of phase 32
+LADDER_RUNS = (
+    ("base", "dist", "_heavy_cap_override", 1, "run_exact",
+     "probe_hist_packed"),
+    ("base", "dist", "_lane_cap_override", 16, "the uncapped lanes",
+     "probe_hist_packed"),
+    ("base", "place", "_heavy_cap_override", 1, "the exact probe",
+     "probe_hist_packed"),
+    ("wide", "dist", "_heavy_cap_override", 1, "run_exact",
+     "probe_hist_tiles"),
+    ("wide", "dist", "_lane_cap_override", 16, "the uncapped lanes",
+     "probe_hist_tiles"),
+    ("wide", "place", "_heavy_cap_override", 1, "the exact probe",
+     "probe_hist_tiles"),
+    ("many", "dist", "_lane_cap_override", 16, "the uncapped lanes", None),
+)
+OPTION_READS = 4096           # base reads of the query-option runs, phase 33
+# bench.py CONFIGS["1k"]'s parameters at 10,000 genomes (ROADMAP item 17:
+# S >= 10^4); genomes cut from 250 kbp to 50 kbp for the time limit (the
+# build's colorizer works a word of the 20,000-node leaf mask per k-mer)
+HUGE = dict(seed=37, nleaves=10000, glen=50_000, rate=0.05, k=29, h=13,
+            w=35, m=4)
+HUGE_READS = 16384            # cut from 65,536 for the time limit
+HUGE_PLACE_READS = 4096       # place's timed passes: 10 batches of 419
+HUGE_PROFILE_READS = 2048     # the profiled dist pass (place's: the first
+#                               1,024 reads; a profile's reading grows with
+#                               its launches, ~10^4 a place batch)
+HUGE_W = 313                  # mask words 10,000 leaves would take
 # (world, command, flags, epilogue kernel, engine mode, environment) of the
 # in-process `--mesh 1x1` runs of phase 28, each against one device
 MESH_RUNS = (
@@ -829,45 +900,79 @@ def same_rows(n, label: str, got_rows, want_rows):
              f"{worst:g}, rows differing in bytes {ndiff}")
 
 
+def run_query(eng, cmd: str, reads: str, out: str = os.devnull,
+              stats=None, invocation: str = "smoke") -> int:
+    """run_dist or run_place (default configuration) of the FASTQ file
+    `reads` on the engine `eng`, the report into the file `out`; returns
+    the number of reads."""
+    from krepp_tpu_torch.query.dist import DistConfig, run_dist
+    from krepp_tpu_torch.query.place import PlaceConfig, run_place
+
+    run, cfg = ((run_place, PlaceConfig()) if cmd == "place"
+                else (run_dist, DistConfig()))
+    with open(out, "w") as f:
+        return run(eng.di, reads, f, invocation, cfg,
+                   engine_factory=lambda d, th: eng, stats=stats)
+
+
 def throughput(n: int, name: str, idx: str, fq: str, card: str,
-               cmd: str = "dist"):
-    """dist or place reads/s (index loaded once): a warm-up, then 3 timed
-    passes, with the tier re-runs of each pass and the peak device memory
-    (tables included). Returns a function running one more pass."""
+               cmd: str = "dist", eng=None, fetch_ms: bool = False):
+    """dist or place reads/s (index loaded once, or `eng` given): a
+    warm-up, then 3 timed passes, with the tier re-runs of each pass and
+    the peak device memory (tables included); fetch_ms adds the host time
+    a batch spends in fetch_prefetched (the [B, S] host arrays of dist).
+    Returns a function running one more pass (of `reads`, default fq)."""
     import torch
 
     from krepp_tpu_torch.index.artifact import load_index
-    from krepp_tpu_torch.query.dist import DistConfig, run_dist
     from krepp_tpu_torch.query.engine import QueryEngine
-    from krepp_tpu_torch.query.place import PlaceConfig, run_place
 
-    eng = QueryEngine(load_index(idx), 4, device="cuda")
+    if eng is None:
+        eng = QueryEngine(load_index(idx), 4, device="cuda")
 
-    def one_pass(stats=None):
-        with open(os.devnull, "w") as sink:
-            if cmd == "place":
-                return run_place(eng.di, fq, sink, "smoke", PlaceConfig(),
-                                 engine_factory=lambda di, th: eng,
-                                 stats=stats)
-            return run_dist(eng.di, fq, sink, "smoke", DistConfig(),
-                            engine_factory=lambda di, th: eng, stats=stats)
+    def one_pass(stats=None, reads=fq):
+        return run_query(eng, cmd, reads, stats=stats)
 
+    fetch_s = []
+    flags = set()
+    if fetch_ms:
+        fetch = eng.fetch_prefetched
+
+        def timed_fetch(fetched, *args, **kw):
+            # the first step's overflow word: bit 0 probe caps, bit 1 lanes
+            flags.add(int(fetched[-1].max()))
+            t0 = time.perf_counter()
+            out = fetch(fetched, *args, **kw)
+            fetch_s.append(time.perf_counter() - t0)
+            return out
+
+        eng.fetch_prefetched = timed_fetch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rates = []
     reruns = []
-    for rep in range(4):
-        stats = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        nr = one_pass(stats)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if rep:
-            rates.append(nr / dt)
-            reruns.append(sum(stats["escalations"]))
-            phase(n, f"pass {rep}: {nr / dt:.1f} reads/s ({dt:.3f} s) "
-                     f"on {card}")
+    try:
+        for rep in range(4):
+            stats = {}
+            fetch_s.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nr = one_pass(stats)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if rep:
+                rates.append(nr / dt)
+                reruns.append(sum(stats["escalations"]))
+                said = (f"; fetch_prefetched {1e3 * sum(fetch_s):.1f} ms "
+                        f"host time, {1e3 * max(fetch_s):.1f} ms the "
+                        f"slowest of {len(fetch_s)} batches, first-step "
+                        f"overflow words {sorted(flags)}"
+                        if fetch_s else "")
+                phase(n, f"pass {rep}: {nr / dt:.1f} reads/s ({dt:.3f} s) "
+                         f"on {card}{said}")
+    finally:
+        if fetch_ms:
+            del eng.fetch_prefetched
     med = statistics.median(rates)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     phase(n, f"{cmd} {name}: median {med:.1f} reads/s, spread "
@@ -879,9 +984,13 @@ def throughput(n: int, name: str, idx: str, fq: str, card: str,
 
 
 def profile_pass(n: int, one_pass):
-    """One pass under torch.profiler: wall time, device busy time and the
-    device time of the top kernels."""
+    """One pass under torch.profiler: wall time, device busy time (the
+    device's own entries: kernels, copies, sets) and the device time of
+    the top entries. Also printed: the sum over operator and device
+    entries alike, which earlier versions reported as the busy time; it
+    counts each kernel twice, once under the operator that launched it."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -890,15 +999,20 @@ def profile_pass(n: int, one_pass):
         one_pass()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
+    t0 = time.perf_counter()
+    averages = prof.key_averages()     # once: a minute at ~10^6 events
+    events = [e for e in averages
               if getattr(e, "device_time_total", 0) > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    both = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
     phase(n, f"profiled pass: {wall * 1e3:.1f} ms wall (profiler on), "
              f"{busy:.3f} ms device time ({100 * busy / (wall * 1e3):.1f}% "
-             f"busy), {launches} cudaLaunchKernel")
+             f"busy), {launches} cudaLaunchKernel; operator and device "
+             f"entries summed (the earlier figure) {both:.3f} ms; the profile "
+             f"read in {time.perf_counter() - t0:.1f} s")
     ours = [e for e in events if any(k in e.key for k in KERNELS)
             and e not in top]
     for e in top + ours:
@@ -967,25 +1081,35 @@ def place_on_card(n: int, idx: str, fq: str, out: str, nreads: int,
 
 
 def place_vs_host(n: int, idx: str, fq_cpu: str, out_gpu: str, nreads: int,
-                  out_cpu: str, ncpu: int):
-    """The first ncpu reads through --device cpu: the same reads placed on
-    the same edges; distance, LWR and likelihood within one unit of the
-    5-decimal grid."""
+                  out_cpu: str, ncpu: int, flags=()):
+    """The first ncpu reads through --device cpu (with `flags`): the same
+    reads placed on the same edges; distance, LWR and likelihood within
+    one unit of the 5-decimal grid."""
     rc, _ = run_cli(["place", "-q", fq_cpu, "-i", idx, "-o", out_cpu,
-                     "--device", "cpu"])
+                     *flags, "--device", "cpu"])
     check(rc == 0, f"cpu cli returned {rc}")
-    cpu = read_jplace(out_cpu, ncpu)
-    keep = {f"r{i}" for i in range(ncpu)}
-    gpu = {r: p for r, p in read_jplace(out_gpu, nreads).items() if r in keep}
+    same_placements(n, f"cuda vs cpu on {ncpu} reads", out_gpu, nreads,
+                    out_cpu, ncpu)
+
+
+def same_placements(n, label: str, got: str, nreads: int, want: str,
+                    ncmp: int):
+    """Two jplace reports place the first ncmp reads on the same edges,
+    with distance, LWR and likelihood within one unit of the 5-decimal
+    grid; `want` holds ncmp reads, `got` nreads."""
+    cpu = read_jplace(want, ncmp)
+    keep = {f"r{i}" for i in range(ncmp)}
+    gpu = {r: p for r, p in read_jplace(got, nreads).items() if r in keep}
     check(gpu.keys() == cpu.keys(),
-          f"placed read sets differ: {len(gpu.keys() ^ cpu.keys())} reads")
+          f"{label}: placed read sets differ: {len(gpu.keys() ^ cpu.keys())}"
+          " reads")
     worst = 0
     ndiff = nrows = 0
     for r, crows in cpu.items():
         g = {row[0]: row for row in gpu[r]}
         c = {row[0]: row for row in crows}
-        check(g.keys() == c.keys(), f"read {r}: edges {sorted(g)} on cuda, "
-                                    f"{sorted(c)} on the host")
+        check(g.keys() == c.keys(), f"{label}: read {r}: edges {sorted(g)} "
+                                    f"against {sorted(c)}")
         for e, crow in c.items():
             nrows += 1
             ndiff += g[e] != crow
@@ -993,10 +1117,9 @@ def place_vs_host(n: int, idx: str, fq_cpu: str, out_gpu: str, nreads: int,
                 if not (math.isnan(g[e][j]) and math.isnan(crow[j])):
                     units = abs(round(g[e][j] * 1e5) - round(crow[j] * 1e5))
                     worst = max(worst, units)
-    check(worst <= 1, f"a field differs by {worst} units of 1e-5")
-    phase(n, f"cuda vs cpu on {ncpu} reads: {len(cpu)} placed, {nrows} rows "
-             f"on the same edges, max diff {worst} x 1e-5, rows differing in "
-             f"bytes {ndiff}")
+    check(worst <= 1, f"{label}: a field differs by {worst} units of 1e-5")
+    phase(n, f"{label}: {len(cpu)} placed, {nrows} rows on the same edges, "
+             f"max diff {worst} x 1e-5, rows differing in bytes {ndiff}")
 
 
 def read_seek_rows(path: str, nreads: int):
@@ -1028,14 +1151,14 @@ def seek_on_card(n: int, sk: str, fq: str, out: str, total: dict):
 
 
 def seek_vs_host(n: int, sk: str, fq_cpu: str, out_gpu: str, out_cpu: str,
-                 ncpu: int):
+                 ncpu: int, nreads: int = SEEK_READS):
     """The first ncpu reads through --device cpu: the same rows, distances
-    within 1e-5."""
+    within 1e-5 (out_gpu holds nreads reads)."""
     rc, _ = run_cli(["seek", "-q", fq_cpu, "-i", sk, "-o", out_cpu,
                      "--device", "cpu"])
     check(rc == 0, f"cpu cli returned {rc}")
     cpu = read_seek_rows(out_cpu, ncpu)
-    gpu = read_seek_rows(out_gpu, SEEK_READS)[:ncpu]
+    gpu = read_seek_rows(out_gpu, nreads)[:ncpu]
     worst = 0.0
     for g, c in zip(gpu, cpu):
         (gn, gd), (cn, cd) = g.split("\t"), c.split("\t")
@@ -1436,43 +1559,48 @@ def build_path_phases(root: str, card: str, idx: str, base_files,
                                   f"{WINDOW_KMERS}")
 
 
-def paired_rates(n: int, world: str, idx: str, fq: str, card: str, meshes):
-    """Warm dist reads/s of one engine per entry of `meshes` (None: one
-    device, else DATAxSHARD over the first cards) on the same reads: a
-    warm-up pass each, then 3 rounds of one pass each in turn, so that the
-    host's drift falls on all alike. Prints the medians and the ratio of
-    the second to the first."""
+def rates_in_turn(n, what: str, fq: str, engines: dict, card: str,
+                  cmd: str = "dist"):
+    """Warm dist or place reads/s of each engine of `engines` ({label:
+    engine}) on the same reads: a warm-up pass each, then 3 rounds of one
+    pass each in turn, so that the host's drift falls on all alike. Prints
+    the medians and the ratio of the second to the first."""
     import torch
 
+    rates = {label: [] for label in engines}
+    for rep in range(4):
+        for label, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nr = run_query(eng, cmd, fq)
+            torch.cuda.synchronize()
+            if rep:
+                rates[label].append(nr / (time.perf_counter() - t0))
+    med = {label: statistics.median(r) for label, r in rates.items()}
+    a, b = engines
+    phase(n, f"{what}, warm, passes in turn: "
+          + ", ".join(f"{label} {med[label]:.1f} reads/s (spread "
+                      f"{max(r) / min(r):.3f}x)" for label, r in rates.items())
+          + f"; {b} / {a} {med[b] / med[a]:.3f}x on {card}")
+
+
+def paired_rates(n: int, world: str, idx: str, fq: str, card: str, meshes):
+    """Warm dist reads/s of one engine per entry of `meshes` (None: one
+    device, else DATAxSHARD over the first cards) on the same reads, passes
+    in turn (rates_in_turn)."""
     from krepp_tpu_torch.index.artifact import load_index
     from krepp_tpu_torch.parallel.mesh import (ShardedQueryEngine,
                                                make_query_mesh, parse_mesh)
-    from krepp_tpu_torch.query.dist import DistConfig, run_dist
     from krepp_tpu_torch.query.engine import QueryEngine
 
     di = load_index(idx)
-    engines = {m: QueryEngine(di, 4, device="cuda") if m is None else
+    engines = {"one device" if m is None else f"--mesh {m}":
+               QueryEngine(di, 4, device="cuda") if m is None else
                ShardedQueryEngine(di, make_query_mesh(*parse_mesh(m),
                                                       device="cuda"), 4)
                for m in meshes}
-    rates = {m: [] for m in meshes}
-    for rep in range(4):
-        for m, eng in engines.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with open(os.devnull, "w") as sink:
-                nr = run_dist(di, fq, sink, "smoke", DistConfig(),
-                              engine_factory=lambda d, th, e=eng: e)
-            torch.cuda.synchronize()
-            if rep:
-                rates[m].append(nr / (time.perf_counter() - t0))
-    med = {m: statistics.median(r) for m, r in rates.items()}
-    said = {m: "one device" if m is None else f"--mesh {m}" for m in meshes}
-    a, b = meshes
-    phase(n, f"{world} dist, {MESH_READS} reads, warm, passes in turn: "
-          + ", ".join(f"{said[m]} {med[m]:.1f} reads/s (spread "
-                      f"{max(r) / min(r):.3f}x)" for m, r in rates.items())
-          + f"; {said[b]} / {said[a]} {med[b] / med[a]:.3f}x on {card}")
+    rates_in_turn(n, f"{world} dist, {MESH_READS} reads", fq, engines,
+                  card)
 
 
 def card_run(n, label: str, argv, launched, total: dict, mode: str,
@@ -1503,15 +1631,15 @@ def card_run(n, label: str, argv, launched, total: dict, mode: str,
     return dt
 
 
-def same_file(n, label: str, got: str, want: str):
+def same_file(n, label: str, got: str, want: str,
+              what: str = "the one-device report"):
     import filecmp
 
     check(filecmp.cmp(got, want, shallow=False),
-          f"{label}: the report differs from one device's")
+          f"{label}: the report differs from {what}")
     with open(got) as f:
         nlines = sum(1 for _ in f)
-    phase(n, f"{label}: the one-device report byte for byte ({nlines} "
-             f"lines)")
+    phase(n, f"{label}: {what} byte for byte ({nlines} lines)")
 
 
 def mesh_in_process(n: int, root: str, worlds: dict, card: str, total: dict,
@@ -1703,6 +1831,519 @@ def multi_card(n: int, root: str, worlds: dict, singles: dict, card: str,
     ranks_on_card(n, root, worlds, singles, total, "nccl", RANK_RUNS[:1])
 
 
+@contextlib.contextmanager
+def csr_mode():
+    """DIRECT_MEM_CAP = 0 in the port's query engine for the block (the
+    hook of tests/test_torch_engine.py): no bucket-row table fits, so the
+    QueryEngine, the sharded engine and the SeekEngine built inside it take
+    CSR mode."""
+    from krepp_tpu_torch.query import engine
+
+    saved = engine.DIRECT_MEM_CAP
+    engine.DIRECT_MEM_CAP = 0
+    try:
+        yield
+    finally:
+        engine.DIRECT_MEM_CAP = saved
+
+
+def csr_phase(n: int, root: str, wide, wide_cpu: str, singles: dict, seek,
+              card: str, total: dict):
+    """Phase 31: CSR mode on the card. Wide dist and place (the first
+    MESH_READS reads), one device and --mesh 1x1, each byte for byte phase
+    28's hybrid-mode report and held against the host on the first
+    WIDE_CPU_READS; seek in its CSR mode against the host and against the
+    direct table's rows; warm reads/s of CSR mode beside hybrid (direct)
+    mode, passes in turn."""
+    import torch
+
+    from krepp_tpu_torch.index.artifact import load_index, \
+        load_sketch_reference
+    from krepp_tpu_torch.query.engine import QueryEngine
+    from krepp_tpu_torch.query.seek import run_seek
+
+    widx, wfq = wide
+    for cmd in ("dist", "place"):
+        want, _ = singles[("wide", cmd)]
+        out = os.path.join(root, f"wide_{cmd}_csr")
+        with csr_mode():
+            for mesh in ([], ["--mesh", "1x1"]):
+                label = " ".join(["wide", cmd, *mesh, "in CSR mode"])
+                got = out + "_mesh" * bool(mesh)
+                card_run(n, label, [cmd, "-q", wfq, "-i", widx, "-o", got,
+                                    *mesh], None, total, "csr")
+                same_file(n, label, got, want, "the hybrid-mode report")
+            if cmd == "dist":
+                gpu_vs_cpu(n, widx, wide_cpu, out, out + "_cpu",
+                           WIDE_CPU_READS)
+            else:
+                place_vs_host(n, widx, wide_cpu, out, MESH_READS,
+                              out + "_cpu", WIDE_CPU_READS)
+    di = load_index(widx)
+    engines = {"hybrid mode": QueryEngine(di, 4, device="cuda")}
+    with csr_mode():
+        engines["CSR mode"] = QueryEngine(di, 4, device="cuda")
+    check(engines["CSR mode"].mode == "csr", "the CSR engine is "
+                                             f"{engines['CSR mode'].mode}")
+    for cmd in ("dist", "place"):
+        rates_in_turn(n, f"wide {cmd}, {MESH_READS} reads", wfq, engines,
+                      card, cmd)
+    del engines, di
+    torch.cuda.empty_cache()
+
+    sk, sfq, sfq_cpu, direct_out = seek
+    out = os.path.join(root, "seek_csr.tsv")
+    with csr_mode():
+        stats, counts, dt = counted_run(["seek", "-q", sfq, "-i", sk, "-o",
+                                         out, "--device", "cuda"], None,
+                                        total)
+        check(stats["mode"] == "csr", f"seek mode {stats['mode']}")
+        phase(n, f"seek in CSR mode on cuda: {MESH_READS} reads, {dt:.2f} s "
+                 f"with sketch load, batches={stats['batches']}, "
+                 f"launches={counts}")
+        seek_vs_host(n, sk, sfq_cpu, out, out + "_cpu", CPU_READS,
+                     MESH_READS)
+    got = read_seek_rows(out, MESH_READS)
+    want = read_seek_rows(direct_out, SEEK_READS)[:MESH_READS]
+    worst = 0.0
+    for g, w in zip(got, want):
+        (gn, gd), (wn, wd) = g.split("\t"), w.split("\t")
+        check(gn == wn and (gd == "NaN") == (wd == "NaN"),
+              f"seek rows differ: {g!r} in CSR mode, {w!r} direct")
+        if gd != "NaN":
+            worst = max(worst, abs(float(gd) - float(wd)))
+    check(worst <= DIST_TOL, f"seek distance differs by {worst}")
+    phase(n, f"seek, CSR mode vs the direct table on {MESH_READS} reads: "
+             f"same rows, max |dist diff| {worst:g}, rows differing in bytes "
+             f"{sum(g != w for g, w in zip(got, want))}")
+    sketch = load_sketch_reference(sk)
+    sfq = head_fastq(sfq, os.path.join(root, "seek_rates.fq"),
+                     SEEK_RATE_READS)
+    rates = {"direct table": [], "CSR mode": []}
+    for rep in range(4):
+        for label in rates:
+            with contextlib.ExitStack() as stack:
+                if label == "CSR mode":
+                    stack.enter_context(csr_mode())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with open(os.devnull, "w") as sink:
+                    nr = run_seek(sketch, sfq, sink, "smoke", device="cuda")
+                torch.cuda.synchronize()
+            if rep:
+                rates[label].append(nr / (time.perf_counter() - t0))
+    med = {k: statistics.median(r) for k, r in rates.items()}
+    phase(n, f"seek, {SEEK_RATE_READS} reads, warm, passes in turn: "
+          + ", ".join(f"{k} {med[k]:.1f} reads/s (spread "
+                      f"{max(r) / min(r):.3f}x)" for k, r in rates.items())
+          + f"; CSR mode / direct table "
+            f"{med['CSR mode'] / med['direct table']:.3f}x on {card}")
+
+
+def logged_steps(eng):
+    """Wrap eng.run_step (every step of dist and place goes through it):
+    returns a list that receives, per step, its capacity keywords (tier,
+    exact, lane_exact) and the epilogue kernel launches it made."""
+    from krepp_tpu_torch.query import kernels
+
+    log = []
+    run_step = eng.run_step
+
+    def run(step, *args, **kw):
+        before = {k: getattr(kernels, k).launches for k in EPILOGUES}
+        out = run_step(step, *args, **kw)
+        keys = {k: v for k, v in getattr(step, "keywords", {}).items()
+                if k in ("tier", "exact", "lane_exact")}
+        log.append((keys, {k: getattr(kernels, k).launches - before[k]
+                           for k in sorted(EPILOGUES)}))
+        return out
+
+    eng.run_step = run
+    return log
+
+
+def _report(eng, cmd: str, fq: str, out: str):
+    """run_query of `fq` on `eng` into `out`; returns (stats, seconds)."""
+    import torch
+
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_query(eng, cmd, fq, out, stats)
+    torch.cuda.synchronize()
+    return stats, time.perf_counter() - t0
+
+
+def ladder(n: int, root: str, worlds: dict, total: dict):
+    """Phase 32: the overflow ladder on the card. For each of LADDER_RUNS
+    a QueryEngine with one of its test hooks forcing a capacity low
+    (`_heavy_cap_override`, `_lane_cap_override`) runs the world's first
+    MESH_READS reads through run_dist / run_place: re-runs must happen, the
+    ladder must end where expected (dist: `run_exact`, the exact CSR
+    rescan, for a probe overflow, the uncapped lanes for a lane overflow;
+    place: its exact probe at tier 1) and the report must be the un-forced
+    engine's byte for byte; the epilogue kernel launches of every step."""
+    import torch
+
+    from krepp_tpu_torch.index.artifact import load_index
+    from krepp_tpu_torch.query import kernels
+    from krepp_tpu_torch.query.engine import QueryEngine
+
+    loaded = {}
+    plain_runs = {}
+    for world, cmd, hook, value, end, launched in LADDER_RUNS:
+        idx, fq = worlds[world]
+        if world not in loaded:
+            loaded.clear()
+            torch.cuda.empty_cache()
+            di = load_index(idx)
+            loaded[world] = (di, QueryEngine(di, 4, device="cuda"))
+        di, plain = loaded[world]
+        for name in KERNELS:
+            getattr(kernels, name).launches = 0
+        if (world, cmd) not in plain_runs:
+            want = os.path.join(root, f"ladder_{world}_{cmd}")
+            st, plain_s = _report(plain, cmd, fq, want)
+            check(not any(st["escalations"]),
+                  f"{world} {cmd} re-ran a tier unforced: {st}")
+            plain_runs[world, cmd] = (want, plain_s)
+        want, plain_s = plain_runs[world, cmd]
+        eng = QueryEngine(di, 4, device="cuda")
+        setattr(eng, hook, value)
+        log = logged_steps(eng)
+        got = want + f"_{hook}"
+        stats, dt = _report(eng, cmd, fq, got)
+        counts = {name: getattr(kernels, name).launches for name in KERNELS}
+        for name, c in counts.items():
+            total[name] += c
+        label = f"{world} {cmd}, {hook} = {value}"
+        check(sum(stats["escalations"]) > 0, f"{label}: no re-run")
+        last = log[-1][0]
+        ran = ("run_exact, the exact CSR rescan" if last.get("exact")
+               else "the uncapped lanes" if last.get("lane_exact")
+               else f"the exact probe at tier {last['tier']}"
+               if cmd == "place" and last.get("tier") else "a capped tier")
+        check(ran.startswith(end), f"{label}: the ladder ended at {ran}, "
+                                   f"want {end}")
+        if launched is None:
+            check(not any(counts[e] for e in EPILOGUES),
+                  f"{label}: launched {counts}")
+        else:
+            check(all(c[launched] for k, c in log if not k.get("exact")
+                      and not (cmd == "place" and k.get("tier"))),
+                  f"{label}: a tier did not launch {launched}: {log}")
+        same_file(n, label, got, want, "the un-forced engine's report")
+        steps = "; ".join(
+            ("exact" if k.get("exact") else f"tier {k.get('tier', 0)}"
+             + (" lane_exact" if k.get("lane_exact") else ""))
+            + f": {c}" for k, c in log)
+        phase(n, f"{label}: {sum(stats['escalations'])} re-runs over "
+                 f"{len(stats['escalations'])} batches, ended at {ran}; "
+                 f"{dt:.3f} s against {plain_s:.3f} s un-forced "
+                 f"({dt / plain_s:.2f}x); epilogue launches by step: {steps}")
+        del eng
+    loaded.clear()
+    torch.cuda.empty_cache()
+
+
+def _pruned_newick(path: str, drop) -> str:
+    """The Newick tree of `path` without the leaves named in `drop` (unary
+    nodes collapsed): a placement tree that leaves some slots unmapped."""
+    from krepp_tpu_torch.tree.newick import Tree
+
+    with open(path) as f:
+        tree = Tree.parse(f.read())
+
+    def prune(nd):
+        if nd.is_leaf:
+            return None if nd.name in drop else nd.name + (
+                "" if math.isnan(nd.blen) else f":{nd.blen:g}")
+        subs = [s for s in (prune(c) for c in nd.children) if s]
+        if len(subs) <= 1:
+            return subs[0] if subs else None
+        return "(" + ",".join(subs) + ")" + (nd.name or "") + (
+            "" if math.isnan(nd.blen) else f":{nd.blen:g}")
+
+    s = prune(tree.root)
+    return s[: s.rindex(")") + 1] + ";"
+
+
+def read_table(path: str, keys):
+    """A tabular or summarize report: (column line, {key columns: the
+    other fields})."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0].startswith("# software: krepp\tversion: v0.8.3"
+                              "\tinvocation :") and lines[1].startswith("# ("),
+          f"bad header in {path}")
+    table = {}
+    for row in lines[3:]:
+        fields = row.split("\t")
+        key = tuple(fields[i] for i in keys)
+        check(key not in table, f"{path}: {key} twice")
+        table[key] = [x for i, x in enumerate(fields) if i not in keys]
+    return lines[2], table
+
+
+def same_table(n, label: str, got: str, want: str, keys):
+    """Two tabular or summarize reports hold the same keys, their names
+    equal and their numbers within one unit of the 5-decimal grid."""
+    gh, g = read_table(got, keys)
+    wh, w = read_table(want, keys)
+    check(gh == wh, f"{label}: column lines {gh!r} and {wh!r}")
+    check(g.keys() == w.keys() and w,
+          f"{label}: {len(g.keys() ^ w.keys())} keys differ")
+    worst = ndiff = 0
+    for key, wv in w.items():
+        gv = g[key]
+        ndiff += gv != wv
+        for a, b in zip(gv, wv):
+            try:
+                fa, fb = float(a), float(b)
+            except ValueError:
+                check(a == b, f"{label}: {key}: {a!r} against {b!r}")
+                continue
+            if not (math.isnan(fa) and math.isnan(fb)):
+                worst = max(worst, abs(round(fa * 1e5) - round(fb * 1e5)))
+    check(worst <= 1, f"{label}: a field differs by {worst} units of 1e-5")
+    phase(n, f"{label}: {len(w)} rows on the same keys, max diff {worst} x "
+             f"1e-5, rows differing in bytes {ndiff}")
+
+
+def options_phase(n: int, root: str, idx: str, base_fq: str, tree_path: str,
+                  genomes, many, total: dict):
+    """Phase 33: the query options on the base index, the first
+    OPTION_READS reads, each through the CLI on cuda (probe_hist_packed)
+    and on the host: dist rows within 1e-5, placements on the same edges
+    within one unit of the 5-decimal grid; place --summarize on many too
+    (lane stage 3 on its 1,999-node tree, the first WIDE_CPU_READS
+    reads)."""
+    fq = head_fastq(base_fq, os.path.join(root, "options.fq"), OPTION_READS)
+    qtree = os.path.join(root, "pruned.nwk")
+    with open(qtree, "w") as f:
+        f.write(_pruned_newick(tree_path, {"G001", "G007", "G008"}) + "\n")
+    lineages = os.path.join(root, "lineages.txt")
+    names = sorted(genomes)
+    with open(lineages, "w") as f:
+        for i, name in enumerate(names):
+            fam = "f__A" if i < len(names) // 2 else "f__B"
+            f.write(f"{name}\tk__Bacteria; p__P; c__C; o__O; {fam}; "
+                    f"g__G{i % 5}; s__S{i}\n")
+    runs = [("dist", flags) for flags in (
+        ["--no-multi"], ["--filter"], ["--dist-max", "0.05"])] + [
+        ("place", flags) for flags in (
+            ["-t", qtree], ["-l", lineages], ["-l", lineages, "--tabular"],
+            ["--summarize"], ["--tabular"], ["--tau", "3"], ["--no-multi"],
+            ["--no-filter"])]
+    runs = [(idx, fq, OPTION_READS, cmd, flags, "probe_hist_packed",
+             "hybrid") for cmd, flags in runs]
+    runs.append((*many, WIDE_CPU_READS, "place", ["--summarize"], None,
+                 "event"))
+    for k, (ix, q, nreads, cmd, flags, launched, mode) in enumerate(runs):
+        world = "many" if mode == "event" else "base"
+        label = " ".join([world, cmd, *(os.path.basename(f) for f in flags)])
+        out = os.path.join(root, f"option{k}")
+        stats, counts, dt = counted_run([cmd, "-q", q, "-i", ix, "-o", out,
+                                         *flags, "--device", "cuda"],
+                                        launched, total)
+        check(stats["mode"] == mode, f"{label}: mode {stats['mode']}")
+        rc, _ = run_cli([cmd, "-q", q, "-i", ix, "-o", out + "_cpu", *flags,
+                         "--device", "cpu"])
+        check(rc == 0, f"{label}: the cpu cli returned {rc}")
+        phase(n, f"{label}: {nreads} reads on cuda in {dt:.2f} s with index "
+                 f"load, launches={counts}")
+        if cmd == "dist":
+            same_rows(n, f"{label}: cuda vs cpu", read_rows(out),
+                      read_rows(out + "_cpu"))
+        elif "--summarize" in flags:
+            same_table(n, f"{label}: cuda vs cpu", out, out + "_cpu", (1,))
+        elif "--tabular" in flags:
+            same_table(n, f"{label}: cuda vs cpu", out, out + "_cpu", (0, 2))
+        else:
+            same_placements(n, f"{label}: cuda vs cpu", out, nreads,
+                            out + "_cpu", nreads)
+
+
+def huge_world(n: int, root: str, card: str, total: dict):
+    """Phase 34: the huge world, 10,000 genomes, through dist and place on
+    the card (see HUGE): the build (world, index and the tree work apart,
+    the host's peak RSS); dist and place of HUGE_READS reads through the
+    CLI on cuda in event mode with no epilogue kernel; then on one loaded
+    index, in process: the first WIDE_CPU_READS reads on the host (the
+    same rows / edges), the stage-3 set-up against the dense weight grid
+    it no longer builds, reads/s (dist on HUGE_READS, place on
+    HUGE_PLACE_READS) with tier re-runs, batches and peak device memory,
+    a profiled pass of dist on HUGE_PROFILE_READS and of place on the
+    first WIDE_CPU_READS, and dist through
+    ShardedQueryEngine 1x1 (and 1xN with N cards) byte for byte the CLI's
+    one-device report."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from krepp_tpu_torch.index.artifact import load_index, save_native
+    from krepp_tpu_torch.index.build import build_index_from_sources
+    from krepp_tpu_torch.index.colors import ColorBuilder
+    from krepp_tpu_torch.parallel.mesh import ShardedQueryEngine, \
+        make_query_mesh
+    from krepp_tpu_torch.params import IndexParams, LSHParams
+    from krepp_tpu_torch.query import kernels
+    from krepp_tpu_torch.query.engine import QueryEngine
+    from krepp_tpu_torch.query.place import PlaceAggregator, PlaceConfig
+    from krepp_tpu_torch.testing import make_world_codes
+    from krepp_tpu_torch.tree.flat import FlatTree
+    from krepp_tpu_torch.tree.newick import Tree
+
+    def rss() -> str:
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        return f"{peak / 2 ** 20:.2f} GiB"
+
+    cfg = HUGE
+    t0 = time.time()
+    nwk, genomes = make_world_codes(np.random.default_rng(cfg["seed"]),
+                                    nleaves=cfg["nleaves"], glen=cfg["glen"],
+                                    rate=cfg["rate"])
+    gen_s = time.time() - t0
+    tree = Tree.parse(nwk)
+    params = IndexParams(lsh=LSHParams.generate(cfg["k"], cfg["h"], cfg["m"],
+                                                seed=cfg["seed"]),
+                         w=cfg["w"], r=1, frac=True)
+    names = sorted(genomes)
+    t0 = time.time()
+    built = build_index_from_sources(
+        names, {g: (lambda g=g: iter(genomes[g])) for g in names}, params,
+        tree, progress=False, num_threads=os.cpu_count() or 1)
+    build_s = time.time() - t0
+    t0 = time.time()
+    ftree = FlatTree.from_tree(tree)
+    ColorBuilder(ftree).finalize(built.colors.rho)
+    tree_s = time.time() - t0
+    idx = os.path.join(root, "idx_huge")
+    t0 = time.time()
+    save_native(built, idx)
+    save_s = time.time() - t0
+    nk, nse = built.nkmers, built.colors.nse
+    check(ftree.nnodes == 2 * cfg["nleaves"] - 1,
+          f"the tree has {ftree.nnodes} nodes")
+    del built
+    fq, fq_cpu = write_reads(genomes, cfg["seed"] + 1, HUGE_READS, 150,
+                             WIDE_CPU_READS, root, "huge")
+    fq_place = head_fastq(fq, os.path.join(root, "huge_place.fq"),
+                          HUGE_PLACE_READS)
+    fq_prof = head_fastq(fq, os.path.join(root, "huge_prof.fq"),
+                         HUGE_PROFILE_READS)
+    nbases = sum(len(c[0]) for c in genomes.values())
+    del genomes
+    phase(n, f"huge world: {cfg['nleaves']} genomes, {nbases} bases, "
+             f"generated in {gen_s:.1f} s; index of {nk} k-mers, {nse} "
+             f"colors built in {build_s:.1f} s on {os.cpu_count()} threads "
+             f"(the tree work of the build, {ftree.nnodes} nodes, again "
+             f"alone: {tree_s:.2f} s), saved in {save_s:.1f} s; host peak "
+             f"RSS {rss()}; {HUGE_READS} reads written")
+    out = os.path.join(root, "huge_gpu.tsv")
+    dist_on_card(n, idx, fq, out, HUGE_READS, None, ("se", HUGE_W), total,
+                 mode="event")
+    pout = os.path.join(root, "huge_gpu.jplace")
+    place_on_card(n, idx, fq, pout, HUGE_READS, None, "lanes", total,
+                  mode="event")
+
+    # one loaded index from here on; in-process reports carry the CLI's
+    # invocation line, so they compare with its reports byte for byte
+    inv = " ".join(sys.argv)
+    t0 = time.time()
+    di = load_index(idx)
+    load_s = time.time() - t0
+
+    host = QueryEngine(di, 4, device="cpu")
+    t0 = time.time()
+    run_query(host, "dist", fq_cpu, out + "_cpu", invocation=inv)
+    run_query(host, "place", fq_cpu, pout + "_cpu", invocation=inv)
+    host_s = time.time() - t0
+    del host
+    same_rows(n, f"cuda vs cpu on {WIDE_CPU_READS} reads",
+              first_reads(read_rows(out), WIDE_CPU_READS),
+              read_rows(out + "_cpu"))
+    same_placements(n, f"cuda vs cpu on {WIDE_CPU_READS} reads", pout,
+                    HUGE_READS, pout + "_cpu", WIDE_CPU_READS)
+    t0 = time.time()
+    eng = QueryEngine(di, 4, device="cuda")
+    torch.cuda.synchronize()
+    phase(n, f"index loaded in {load_s:.1f} s, engine tables built in "
+             f"{time.time() - t0:.1f} s (host: dist and place of "
+             f"{WIDE_CPU_READS} reads {host_s:.1f} s, tables included): "
+             f"S = {eng.S}, mode {eng.mode}, {len(di.leaf_csr_slots)} "
+             f"leaf-slot CSR entries, {len(di.enc_v)} k-mers, max bucket "
+             f"{di.max_bucket}; batch reads: dist "
+             f"{eng.suggested_batch_reads()}, place "
+             f"{eng.suggested_batch_reads(place=True)}; host peak RSS "
+             f"{rss()}")
+
+    t0 = time.time()
+    pv = di.placement_view(None)
+    pv_s = time.time() - t0
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    agg = PlaceAggregator(eng, pv, PlaceConfig())
+    torch.cuda.synchronize()
+    agg_s = time.time() - t0
+    agg_gib = (torch.cuda.memory_allocated() - before) / 2 ** 30
+    check(not agg.dense, "huge place takes the dense formulation")
+    # what the lane form used to build: the dense weight grid, its
+    # upload with its positive mask, and a column scan for the chains
+    t0 = time.time()
+    W = pv.weights
+    dense_s = time.time() - t0
+    t0 = time.time()
+    Wd = torch.from_numpy(W).to(eng.device)
+    Wpos = torch.from_numpy(W > 0).to(eng.device)
+    torch.cuda.synchronize()
+    up_s = time.time() - t0
+    t0 = time.time()
+    chains = [np.flatnonzero(W[:, s] > 0) for s in range(W.shape[1])]
+    scan_s = time.time() - t0
+    check(all(np.array_equal(c, pv.anc_q[s, : len(c)])
+              for s, c in enumerate(chains)),
+          "the ancestor chains differ from the weight grid's non-zeros")
+    phase(n, f"stage-3 set-up of every place run: the placement view "
+             f"{pv_s:.2f} s and the lane aggregator {agg_s:.2f} s, "
+             f"{agg_gib:.3f} GiB on the card, from the sparse ancestor "
+             f"chains ({pv.anc_q.shape[1]} deep); the dense [{W.shape[0]} x "
+             f"{W.shape[1]}] f64 grid the lane form built before: "
+             f"{W.nbytes / 2 ** 30:.3f} GiB on the host in {dense_s:.2f} s, "
+             f"{(Wd.nbytes + Wpos.nbytes) / 2 ** 30:.3f} GiB uploaded in "
+             f"{up_s:.2f} s, its column scan {scan_s:.2f} s")
+    del agg, pv, W, Wd, Wpos, chains
+    torch.cuda.empty_cache()
+
+    run = throughput(n, "huge", idx, fq, card, eng=eng, fetch_ms=True)
+    profile_pass(n, lambda: run(reads=fq_prof))
+    run = throughput(n, "huge", idx, fq_place, card, cmd="place", eng=eng)
+    profile_pass(n, lambda: run(reads=fq_cpu))
+    del eng, run
+    torch.cuda.empty_cache()
+    have = torch.cuda.device_count()
+    for shards in sorted({1, have}):
+        label = f"huge dist, ShardedQueryEngine 1x{shards}"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        eng = ShardedQueryEngine(di, make_query_mesh(1, shards,
+                                                     device="cuda"), 4)
+        check(eng.mode == "event", f"{label}: mode {eng.mode}")
+        for name in KERNELS:
+            getattr(kernels, name).launches = 0
+        got = os.path.join(root, f"huge_mesh1x{shards}.tsv")
+        run_query(eng, "dist", fq, got, invocation=inv)
+        counts = {k: getattr(kernels, k).launches for k in KERNELS}
+        check(not any(counts.values()), f"{label} launched {counts}")
+        phase(n, f"{label}: {time.time() - t0:.2f} s with its tables, peak "
+                 f"device memory "
+                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        same_file(n, label, got, out, "the CLI's one-device report")
+        del eng
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1790,6 +2431,7 @@ def main() -> int:
             lfq, lfq_cpu = write_reads(bgen, BASE["seed"] + 2, LONG_READS,
                                        LONG_LEN, WIDE_CPU_READS, root, "long")
             base_genome = bgen["G000"][0]
+            base_names = sorted(bgen)
             del bgen
             lout = os.path.join(root, "long_gpu.tsv")
             dist_on_card(9, idx, lfq, lout, LONG_READS, "probe_hist_tiles",
@@ -1845,8 +2487,11 @@ def main() -> int:
 
         with timed(15, "place reads/s"):
             throughput(15, "base", idx, fq, card, cmd="place")
-            profile_pass(15, throughput(15, "wide", widx, wfq, card,
-                                        cmd="place"))
+            run = throughput(15, "wide", widx, wfq, card, cmd="place")
+            head = head_fastq(wfq, os.path.join(root, "wide_head.fq"),
+                              PROFILE_PLACE_READS)
+            profile_pass(15, lambda: run(reads=head))
+            del run         # its engine's tables would stay on the card
 
         with timed(16, "many world dist"):
             nidx, ngen, nnk, ndt = make_world(MANY, root, "many")
@@ -1869,8 +2514,11 @@ def main() -> int:
             place_vs_host(17, nidx, nfq_cpu, npout, MANY_READS,
                           os.path.join(root, "many_cpu.jplace"),
                           WIDE_CPU_READS)
-            profile_pass(17, throughput(17, "many", nidx, nfq, card,
-                                        cmd="place"))
+            run = throughput(17, "many", nidx, nfq, card, cmd="place")
+            head = head_fastq(nfq, os.path.join(root, "many_head.fq"),
+                              PROFILE_PLACE_READS)
+            profile_pass(17, lambda: run(reads=head))
+            del run         # its engine's tables would stay on the card
 
         with timed(18, "seek"):
             sk, sfq, sfq_cpu = sketch_world(18, root)
@@ -1878,7 +2526,9 @@ def main() -> int:
             seek_on_card(18, sk, sfq, sout, launches)
             seek_vs_host(18, sk, sfq_cpu, sout,
                          os.path.join(root, "seek_cpu.tsv"), CPU_READS)
-            seek_throughput(18, sk, sfq, card)
+            seek_throughput(18, sk, head_fastq(
+                sfq, os.path.join(root, "seek_timed.fq"), SEEK_TIMED_READS),
+                card)
 
         with timed(19, "inspect"):
             inspect_base(19, idx, nk)
@@ -1899,6 +2549,18 @@ def main() -> int:
             ranks_on_card(29, root, worlds, singles, launches, "gloo")
         with timed(30, "meshes over several cards"):
             multi_card(30, root, worlds, singles, card, launches)
+        with timed(31, "CSR mode"):
+            seek_head = head_fastq(sfq, os.path.join(root, "seek_mesh.fq"),
+                                   MESH_READS)
+            csr_phase(31, root, worlds["wide"], wfq_cpu, singles,
+                      (sk, seek_head, sfq_cpu, sout), card, launches)
+        with timed(32, "the overflow ladder"):
+            ladder(32, root, worlds, launches)
+        with timed(33, "query options"):
+            options_phase(33, root, idx, fq, base_files[1], base_names,
+                          (nidx, nfq_cpu), launches)
+        with timed(34, "huge world"):
+            huge_world(34, root, card, launches)
 
     check(not reference_modules(),
           f"the run imported {reference_modules()}")

@@ -234,9 +234,10 @@ def _decompose_colors(built: BuiltIndex) -> np.ndarray:
             m |= 1 << int(l)
         return m
 
+    clades = ftree.clade_leafsets()
     clade_mask: List[int] = [0] * (nnodes + 1)
     for se in range(1, nnodes + 1):
-        clade_mask[se] = to_mask(ftree.clade_leafset(se))
+        clade_mask[se] = to_mask(clades[se])
     set_to_id: Dict[int, int] = {clade_mask[se]: se
                                  for se in range(1, nnodes + 1)}
     comp_masks: Dict[int, int] = {}
@@ -452,8 +453,7 @@ def _merge_partials(partials, tree: Tree, names: List[str],
     nse = nnodes + 1 + len(merged_list)
     off = np.zeros(nse + 1, np.int64)
     sets: List[Tuple[int, ...]] = [()] * nse
-    for se in range(1, nnodes + 1):
-        sets[se] = ftree.clade_leafset(se)
+    sets[1: nnodes + 1] = ftree.clade_leafsets()[1:]
     for i, s in enumerate(merged_list):
         sets[nnodes + 1 + i] = s
     for se in range(nse):

@@ -74,9 +74,9 @@ class ColorBuilder:
     def __init__(self, ftree: FlatTree):
         self.ftree = ftree
         self.nnodes = ftree.nnodes
-        self._clade_to_se: Dict[Tuple[int, ...], int] = {}
-        for se in range(1, ftree.nnodes + 1):
-            self._clade_to_se[ftree.clade_leafset(se)] = se
+        clades = ftree.clade_leafsets()
+        self._clade_to_se: Dict[Tuple[int, ...], int] = {
+            clades[se]: se for se in range(1, ftree.nnodes + 1)}
         self._extra: Dict[Tuple[int, ...], int] = {}
         self._extra_sets: List[Tuple[int, ...]] = []
 
@@ -94,8 +94,7 @@ class ColorBuilder:
     def finalize(self, rho: np.ndarray) -> ColorTable:
         nse = self.nnodes + 1 + len(self._extra_sets)
         sets: List[Tuple[int, ...]] = [()] * nse
-        for se in range(1, self.nnodes + 1):
-            sets[se] = self.ftree.clade_leafset(se)
+        sets[1: self.nnodes + 1] = self.ftree.clade_leafsets()[1:]
         for i, s in enumerate(self._extra_sets):
             sets[self.nnodes + 1 + i] = s
         off = np.zeros(nse + 1, np.int64)

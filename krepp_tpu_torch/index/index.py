@@ -16,13 +16,14 @@ the host: the query engine places what it needs on its device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..params import IndexParams, LSHParams
-from ..tree.flat import FlatTree, placement_weights
+from ..tree.flat import FlatTree, placement_ancestors, placement_weights
 from ..tree.newick import Tree, map_to_qtree
 from .build import BuiltIndex, BuiltSketch
 from .colors import ColorTable
@@ -219,14 +220,22 @@ class PlacementView:
 
     Captures map_to_qtree + eff_nchildren (ref: src/phytree.cpp:421-473) as
     arrays: leaf_qse[slot] = qtree node id (0 if the leaf is absent from the
-    placement tree) and the dense ancestor-damping matrix W."""
+    placement tree), each slot's ancestor chain with its damping weights
+    (anc_q, anc_w: the non-zeros of the dense matrix W, see
+    tree.flat.placement_ancestors) and, built on first use only, W itself
+    (`weights`, [qn+1, S] f64: the dense stage-3 formulation's)."""
 
     index: DeviceIndex
     qtree: Tree
     qflat: FlatTree
     leaf_qse: np.ndarray      # int32 [S]
-    weights: np.ndarray       # float64 [qn+1, S]
+    anc_q: np.ndarray         # int64 [S, D]
+    anc_w: np.ndarray         # float64 [S, D]
     candidate_ok: np.ndarray  # bool [qn+1]: structural candidate filter
+
+    @functools.cached_property
+    def weights(self) -> np.ndarray:
+        return placement_weights(self.qflat, self.leaf_qse)
 
     @staticmethod
     def create(index: DeviceIndex, qtree: Optional[Tree]) -> "PlacementView":
@@ -241,13 +250,14 @@ class PlacementView:
             for i, se in enumerate(index.leaf_ses):
                 nd = se_to_node[int(se)]
                 leaf_qse[i] = nd.se if nd is not None else 0
-        W = placement_weights(qflat, leaf_qse)
+        anc_q, anc_w = placement_ancestors(qflat, leaf_qse)
         # (ref: src/query.cpp:268-281): keep nodes whose children are all
         # covered and that are not unary
         cand = (qflat.nchildren == qflat.eff_nchildren) & (qflat.nchildren != 1)
         cand[0] = False
         return PlacementView(index=index, qtree=qtree, qflat=qflat,
-                             leaf_qse=leaf_qse, weights=W, candidate_ok=cand)
+                             leaf_qse=leaf_qse, anc_q=anc_q, anc_w=anc_w,
+                             candidate_ok=cand)
 
 
 @dataclass

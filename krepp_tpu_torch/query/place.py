@@ -85,8 +85,6 @@ class PlaceAggregator:
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        self._W = t(pv.weights)                          # [Q+1, S] f64
-        self._Wpos = t(pv.weights > 0)
         leaf_of_q = np.full(self.Q + 1, -1, np.int64)    # slot owning leaf q
         for s, q in enumerate(pv.leaf_qse):
             if q > 0:
@@ -99,19 +97,12 @@ class PlaceAggregator:
         # structural candidate gate: eff_nchildren-covered internal nodes
         # with a parent (ref: src/query.cpp:268-281)
         self._cand_struct = t(pv.candidate_ok & (pv.qflat.parent != 0))
-        # per-slot ancestor chains for the lane path: post-order ids grow
-        # root-ward, so np.flatnonzero yields leaf-first order (j = 0 is the
-        # slot's own placement-tree leaf)
-        W = pv.weights
-        anc_lists = [np.flatnonzero(W[:, s] > 0) for s in range(S)]
-        self._Dmax = max(max((len(a) for a in anc_lists), default=0), 1)
-        anc_q = np.zeros((S, self._Dmax), np.int64)
-        anc_w = np.zeros((S, self._Dmax), np.float64)
-        for s, a in enumerate(anc_lists):
-            anc_q[s, : len(a)] = a
-            anc_w[s, : len(a)] = W[a, s]
-        self._anc_q = t(anc_q)
-        self._anc_w = t(anc_w)
+        # per-slot ancestor chains for the lane path, leaf first (j = 0 is
+        # the slot's own placement-tree leaf): the non-zeros of the weight
+        # grid, so the lane path never builds the [Q+1, S] grid
+        self._Dmax = pv.anc_q.shape[1]
+        self._anc_q = t(pv.anc_q)
+        self._anc_w = t(pv.anc_w)
         is_owner = np.zeros(S, bool)
         for s, q in enumerate(pv.leaf_qse):
             if q > 0 and leaf_of_q[q] == s:
@@ -122,6 +113,16 @@ class PlaceAggregator:
             np.asarray(engine.di.rho_slot)[np.maximum(leaf_of_q, 0)], 0.0))
         self.dense = (self.Q + 1) * S <= DENSE_AGG_MAX
         self._llh_np = make_llh_np(engine.lsh.k, engine.lsh.h, engine.th)
+
+    @functools.cached_property
+    def _W(self) -> torch.Tensor:
+        """[Q+1, S] f64 damping weights on the device: the dense
+        formulation's (and `aggregate`'s), built at first use."""
+        return torch.from_numpy(self.pv.weights).to(self.engine.device)
+
+    @functools.cached_property
+    def _Wpos(self) -> torch.Tensor:
+        return self._W > 0
 
     # ------------------------------------------------- dense aggregation
     def _rho_max(self, present):

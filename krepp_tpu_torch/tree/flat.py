@@ -11,6 +11,7 @@ nothing of the JAX package, so it carries the host code it needs.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import List
@@ -63,23 +64,43 @@ class FlatTree:
 
     def clade_leafset(self, se: int) -> tuple:
         """Sorted tuple of leaf ses beneath node se."""
-        out = []
-        stack = [se]
-        children = self.children_lists()
-        while stack:
-            s = stack.pop()
-            if self.is_leaf[s]:
-                out.append(s)
-            else:
+        return self.clade_leafsets()[se]
+
+    def clade_leafsets(self) -> List[tuple]:
+        """clade_leafset of every node (index se; slot 0 empty), from one
+        post-order pass over the tree, computed once: every node's set is
+        its children's sets merged, so the work is linear in the node count
+        times the depth, not quadratic in the node count."""
+        sets = self.__dict__.get("_clade_sets")
+        if sets is None:
+            children = self.children_lists()
+            order = []
+            stack = [se for se in range(1, self.nnodes + 1)
+                     if not self.parent[se]]
+            while stack:
+                s = stack.pop()
+                order.append(s)
                 stack.extend(children[s])
-        return tuple(sorted(out))
+            sets = [()] * (self.nnodes + 1)
+            for s in reversed(order):         # children before parents
+                if self.is_leaf[s]:
+                    sets[s] = (s,)
+                elif children[s]:
+                    sets[s] = tuple(sorted(itertools.chain.from_iterable(
+                        sets[c] for c in children[s])))
+            self._clade_sets = sets
+        return sets
 
     def children_lists(self) -> List[List[int]]:
-        ch: List[List[int]] = [[] for _ in range(self.nnodes + 1)]
-        for se in range(1, self.nnodes + 1):
-            p = self.parent[se]
-            if p:
-                ch[p].append(se)
+        """Child ses of every node (index se), computed once."""
+        ch = self.__dict__.get("_children")
+        if ch is None:
+            ch = [[] for _ in range(self.nnodes + 1)]
+            for se in range(1, self.nnodes + 1):
+                p = self.parent[se]
+                if p:
+                    ch[p].append(se)
+            self._children = ch
         return ch
 
 
@@ -114,3 +135,44 @@ def placement_weights(qtree_flat: FlatTree, leaf_qse: np.ndarray) -> np.ndarray:
             W[p, s] += denom
             node = p
     return W
+
+
+def placement_ancestors(qtree_flat: FlatTree, leaf_qse: np.ndarray):
+    """The non-zero entries of placement_weights, slot by slot, without
+    the dense [qn+1, S] array (19,999 x 10,000 f64 at 10,000 leaves on a
+    balanced tree, of which about depth + 1 entries a column are set).
+
+    Returns (anc_q int64 [S, D], anc_w float64 [S, D]): row s holds
+    np.flatnonzero(W[:, s] > 0) (ascending node ids: the slot's own node
+    first, as post-order ids grow root-ward) and W at those nodes, the
+    same floats, zero-padded to the longest chain D (at least 1). The walk
+    is placement_weights'."""
+    S = len(leaf_qse)
+    chains = []
+    for q in leaf_qse:
+        q = int(q)
+        if q == 0:
+            chains.append([])
+            continue
+        chain = [(q, 1.0)]
+        denom = 1.0
+        leaf_is_taxon = bool(qtree_flat.is_taxon[q])
+        node = q
+        while True:
+            p = int(qtree_flat.parent[node])
+            if p == 0:
+                break
+            if qtree_flat.is_taxon[p] and leaf_is_taxon:
+                denom = 1.0
+            else:
+                denom /= float(qtree_flat.eff_nchildren[p])
+            chain.append((p, denom))
+            node = p
+        chains.append(sorted(c for c in chain if c[1] > 0))
+    D = max(max((len(c) for c in chains), default=0), 1)
+    anc_q = np.zeros((S, D), np.int64)
+    anc_w = np.zeros((S, D), np.float64)
+    for s, chain in enumerate(chains):
+        if chain:
+            anc_q[s, : len(chain)], anc_w[s, : len(chain)] = zip(*chain)
+    return anc_q, anc_w

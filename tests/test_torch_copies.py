@@ -209,6 +209,44 @@ def test_map_to_qtree_on_a_pruned_tree_and_placement_weights():
     assert np.array_equal(jw, tw) and tw.sum() > 0 and jc == tc
 
 
+@pytest.mark.parametrize("qtree", ["index", "pruned", "lineages"])
+def test_placement_ancestors_are_the_nonzero_weights(qtree):
+    """The port's sparse ancestor chains (the lane path's stage-3 input,
+    built without the dense [Q+1, S] grid) hold, for every slot, exactly
+    np.flatnonzero of the reference's placement_weights column and its
+    values; unmapped slots hold nothing."""
+    nwk, _ = make_world(np.random.default_rng(9), nleaves=12, glen=40)
+    text = {"index": nwk, "pruned": _pruned(nwk, {"G001", "G007", "G008"}),
+            "lineages": "\n".join(
+                f"G{i:03d}\td__B;p__P{i % 2};c__C{i % 3};o__O;f__F;"
+                f"g__G{i % 4};s__S{i}" for i in range(12) if i != 5)}[qtree]
+    outs = []
+    for nk, fl in ((jnewick, jflat), (newick, flat)):
+        index_tree = nk.Tree.parse(nwk)
+        q = (nk.Tree.parse_lineages(text) if qtree == "lineages"
+             else nk.Tree.parse(text))
+        se_to_node = nk.map_to_qtree(index_tree, q)   # sets eff_nchildren
+        leaf_qse = np.array([0 if se_to_node[se] is None
+                             else se_to_node[se].se
+                             for se in fl.FlatTree.from_tree(
+                                 index_tree).leaf_ses()], np.int32)
+        outs.append((leaf_qse, fl.FlatTree.from_tree(q)))
+    (jq, jflat_q), (leaf_qse, qflat) = outs
+    assert np.array_equal(jq, leaf_qse)
+    W = jflat.placement_weights(jflat_q, leaf_qse)
+    anc_q, anc_w = flat.placement_ancestors(qflat, leaf_qse)
+    assert anc_q.dtype == np.int64 and anc_w.dtype == np.float64
+    assert anc_q.shape == (len(leaf_qse), max(
+        (W[:, s] > 0).sum() for s in range(len(leaf_qse))))
+    for s in range(len(leaf_qse)):
+        nz = np.flatnonzero(W[:, s] > 0)
+        assert np.array_equal(anc_q[s, : len(nz)], nz)
+        assert np.array_equal(anc_w[s, : len(nz)], W[nz, s])
+        assert not anc_q[s, len(nz):].any() and not anc_w[s, len(nz):].any()
+    assert (leaf_qse == 0).sum() == {"index": 0, "pruned": 3,
+                                     "lineages": 1}[qtree]
+
+
 def test_lineage_trees_match():
     text = "\n".join(
         f"G{i:03d}\td__B;p__P{i % 2};c__C{i % 3};o__O;f__F;g__G{i % 4};s__S{i}"
@@ -216,6 +254,69 @@ def test_lineage_trees_match():
     jt, tt = jnewick.Tree.parse_lineages(text), newick.Tree.parse_lineages(text)
     assert _node_table(jt) == _node_table(tt)
     assert jt.newick() == tt.newick()
+
+
+def _balanced_newick(nleaves: int) -> str:
+    def split(lo, hi):
+        if hi - lo == 1:
+            return f"G{lo:05d}:0.1"
+        mid = (lo + hi) // 2
+        return f"({split(lo, mid)},{split(mid, hi)}):0.01"
+
+    return split(0, nleaves).rsplit(":", 1)[0] + ";"
+
+
+@pytest.mark.parametrize("source", ["world", "lineages"])
+def test_clade_leafsets_match_reference(source):
+    """Every node's clade set from the port's one post-order pass equals
+    the reference's per-node walk: a world tree and a multifurcating
+    lineage tree (taxon nodes, unary chains)."""
+    if source == "world":
+        text, _ = make_world(np.random.default_rng(6), nleaves=37, glen=40)
+        jt, tt = jnewick.Tree.parse(text), newick.Tree.parse(text)
+    else:
+        text = "\n".join(f"G{i:03d}\td__B;p__P{i % 2};c__C{i % 3};o__O;"
+                         f"f__F{i % 5};g__G{i % 7};s__S{i}" for i in range(40))
+        jt = jnewick.Tree.parse_lineages(text)
+        tt = newick.Tree.parse_lineages(text)
+    jf, tf = jflat.FlatTree.from_tree(jt), flat.FlatTree.from_tree(tt)
+    sets = tf.clade_leafsets()
+    assert len(sets) == jf.nnodes + 1 and sets[0] == ()
+    for se in range(1, jf.nnodes + 1):
+        assert sets[se] == jf.clade_leafset(se)
+        assert all(type(x) is int for x in sets[se])
+    assert sets[jf.nnodes] == tuple(int(x) for x in jf.leaf_ses())
+
+
+def test_clade_leafsets_are_linear_in_the_tree(monkeypatch):
+    """A 20,000-leaf balanced tree: the port builds its child lists once
+    and every clade set in one pass, in seconds (the reference rebuilds
+    the child lists on every call, so all clade sets cost it time
+    quadratic in the node count); the sets equal the reference's on a
+    sample of 200 nodes, each of which costs the reference one pass."""
+    import time
+
+    text = _balanced_newick(20000)
+    tf = flat.FlatTree.from_tree(newick.Tree.parse(text))
+    jf = jflat.FlatTree.from_tree(jnewick.Tree.parse(text))
+    built = []
+    lists = flat.FlatTree.children_lists
+    monkeypatch.setattr(flat.FlatTree, "children_lists",
+                        lambda self: built.append(1) or lists(self))
+    t0 = time.perf_counter()
+    sets = tf.clade_leafsets()
+    cb = colors.ColorBuilder(tf)
+    cb.finalize(np.zeros(tf.nnodes + 1))
+    assert time.perf_counter() - t0 < 60
+    assert len(built) == 1 and tf.clade_leafsets() is sets
+    assert len(sets[tf.nnodes]) == 20000
+    rng = np.random.default_rng(7)
+    sample = set(rng.choice(np.arange(1, tf.nnodes + 1), 200,
+                            replace=False).tolist())
+    sample |= {1, tf.nnodes, int(jf.leaf_ses()[-1])}
+    for se in sorted(sample):
+        assert sets[se] == jf.clade_leafset(se), se
+        assert cb.color_of(sets[se]) == se
 
 
 # ------------------------------------------------------------------ colors

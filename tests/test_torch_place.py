@@ -391,6 +391,40 @@ def test_cli_place_matches_the_reference_cli(cli_world, args):
     assert len(masked(got.stdout)) > 10
 
 
+@pytest.mark.parametrize("fmt", [[], ["--tabular"], ["--summarize"]])
+def test_cli_place_lineage_matches_the_reference_cli(cli_world, tmp_path,
+                                                     fmt):
+    """`place -l` (a GTDB-style lineage file as the placement tree, as
+    tests/test_cli.py::test_cli_place_lineage writes one) through both
+    CLIs in this process, jplace, --tabular and --summarize: the same
+    bytes (the same sys.argv, so the same invocation line)."""
+    from krepp_tpu.cli import main as jmain
+    from krepp_tpu_torch.index.artifact import load_index
+
+    names = sorted(load_index(str(cli_world / "idx")).names)
+    lineages = tmp_path / "lineages.txt"
+    lineages.write_text("".join(
+        f"{n}\tk__Bacteria; p__P; c__C; o__O; "
+        f"{'f__A' if i < len(names) // 2 else 'f__B'}; g__G{i % 3}; s__\n"
+        for i, n in enumerate(names)))
+    outs = []
+    for main, extra in ((jmain, []), (cli.main, ["--device", "cpu"])):
+        out = tmp_path / f"out{len(outs)}"
+        assert main(["place", "-q", str(cli_world / "q.fq"), "-i",
+                     str(cli_world / "idx"), "-l", str(lineages), "-o",
+                     str(out), *fmt, *extra]) == 0
+        outs.append(out.read_text())
+    assert outs[1] == outs[0]
+    rows = [ln for ln in outs[1].splitlines() if not ln.startswith("#")]
+    assert len(rows) > 3
+    # the lineage tree, not the index's, is the placement tree
+    out = tmp_path / "index_tree"
+    assert cli.main(["place", "-q", str(cli_world / "q.fq"), "-i",
+                     str(cli_world / "idx"), "-o", str(out), *fmt,
+                     "--device", "cpu"]) == 0
+    assert out.read_text() != outs[1]
+
+
 def test_cli_place_validates_like_the_reference(cli_world, capsys):
     """The reference's checks; `--mesh 1x2 --device cpu` places as one
     device does, and a malformed --mesh exits with a message."""
