@@ -25,12 +25,26 @@ checks them:
      32-byte sectors), and at the main shape also through its bare
      launcher into an output allocated once (no wrapper's host time
      between launches); the tiles kernel is also timed at its main shape
-     with every position dark, where it only moves those bytes;
+     with every position dark, where it only moves those bytes; then
+     brent_llh against its plain form (brent_llh_ref) on synthetic lanes
+     at a many-dist batch's stage-2 shape (262,144 lanes, 30% selected)
+     and at edges (mask None as seek passes it, a [B, Q] mask as place's
+     dense stage 3 does, th 0 and 7, k = 27, one lane, none): the largest
+     |d| and |v| differences (5e-9 at most, 0 the aim) and the lanes whose
+     bits differ, the kernel's and the plain form's times, the bound (the
+     larger of the bytes at 3.35 TB/s and the f64 operations of the
+     lane-steps these inputs take, counted by the plain form's lane_steps
+     hook, at 34 TFLOP/s); and one call under
+     torch.cuda.set_sync_debug_mode("error"): the kernel's path does not
+     sync (the plain form's does, which is printed);
   3b. (runs after 5 and after 11) each epilogue kernel again on a batch
      of the main path: the arguments of the first probe_hist_packed launch
      of the base world's dist run and of the first probe_hist_tiles launch
      of the wide world's, kept by the wrappers' `keep_next` hook; bit-equal
-     to the plain version, kernel time, bound and share;
+     to the plain version, kernel time, bound and share; brent_llh the
+     same way (runs in phases 16 and 17) on the lanes of the first launch
+     of the many world's dist run (stage 2) and of the first stage-3
+     (candidate) solve of its place run;
   4. base world: bench.py's "base" configuration (24 genomes x 500 kbp,
      k=27 h=11 w=35 m=4); writes the genomes as FASTA files, the name ->
      path TSV and the Newick tree, builds the index from them with the
@@ -58,6 +72,12 @@ checks them:
      through probe_hist_tiles only, the first 1,024 reads against the host,
      reads/s (warm-up + 3 timed passes), and one profiled pass (device
      busy share, device time by kernel);
+     then the Brent A/B on the first 16,384 reads: passes in turn (plain
+     form, kernel, kernel, plain form; the plain form patched into the
+     call sites by this script, not by a switch of the package), the four
+     reports byte for byte equal, reads/s of each side, and one profiled
+     pass of each (cudaLaunchKernel, device entries, device ms); the same
+     A/B ends phases 16 (many dist), 17 (many place) and 18 (seek);
  12. the probe microbenchmark (krepp_tpu_torch.tools.probe_microbench) at
      the reference tool's sizes on cuda, its row gather through dma_gather;
  13. place on the base index through the CLI on cuda: the jplace parses,
@@ -176,9 +196,12 @@ Any failure raises (non-zero exit). Each phase prints its seconds. The line
 before the last is the kernels JSON (launches: counted over the runs on
 cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18, 20 and 28-34, the ranks
 of other processes included, and for dma_gather over the microbenchmark of
-phase 12; the build path of phases 22-27 runs torch ops and no hand-written
-kernel, which phases 23-27 check; ms, plain_ms, bound_ms and library_ms at
-the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b,
+phase 12; brent_llh must launch on every query run; the build path of
+phases 22-27 runs torch ops and no hand-written kernel, which phases 23-27
+check; ms, plain_ms, bound_ms and library_ms at
+the main shape of phase 3, batch_ms and batch_bound_ms from phase 3b
+(brent_llh: dist_batch_* and place_batch_* from phases 16 and 17, and
+`ab`, the Brent A/B of phases 11 and 16-18),
 shard_batch_ms and shard_batch_bound_ms from phase 28, dma_gather's cold_ms
 and cold_bound_ms on the [32M x 5] table and its launcher_ms through the
 bare launcher);
@@ -238,22 +261,35 @@ DIST_TOL = 1e-5                               # one unit of the output grid
 ROW_RE = re.compile(r"[^\t]+\t[^\t]+\t(\d+\.\d{5}|NaN)")
 SEEK_ROW_RE = re.compile(r"[^\t]+\t(\d+\.\d{5}|NaN)")
 KERNELS = ("probe_hist_packed", "probe_hist_tiles", "hdist_chunk",
-           "dma_gather")
+           "dma_gather", "brent_llh")
 EPILOGUES = {"probe_hist_packed", "probe_hist_tiles"}
 COPY_ONLY = "main shape, every position dark (copy only)"
 COLD_GATHER = "[32M x 5] n=4M"                # a table the L2 cannot hold
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
+# H100 SXM f64 rate without the tensor cores (data sheet; an FMA counts as
+# two operations, and brent_llh contracts none, so this bound is loose)
+F64_OPS_PER_S = 34e12
+# f64 adds, subtractions, multiplications, divisions and compares of one
+# Brent step outside the likelihood, counted in csrc/brent_llh.cu
+BRENT_STEP_OPS = 55
+BRENT_TOL = 5e-9              # tests/test_llh.py's bar; 0 is the aim
+# stage-2 lanes of a many-dist batch: 16,384 reads x 8 lanes x 2 strands
+BRENT_LANES = 262144
 BLOCKED = ("jax", "jaxlib", "krepp_tpu")
 REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
     "probe_hist_packed": "krepp_tpu/query/pallas_kernels.py:210",
     "probe_hist_tiles": "krepp_tpu/query/pallas_kernels.py:93",
     "hdist_chunk": "krepp_tpu/query/pallas_kernels.py:28",
     "dma_gather": "tools/probe_microbench.py:157",
+    # not a Pallas kernel: the jax.lax.while_loop of brent_find_minima
+    # (:192-290), run by brent_on_mask (:316-376)
+    "brent_llh": "krepp_tpu/core/llh.py:192",
 }
 MESH_READS = 16384            # reads a world in the sharded phases 28-30
-# reads of the profiled place passes of phases 15 and 17, cut from 65,536:
-# the time to read a profile grows with its ~10^5 launches
-PROFILE_PLACE_READS = 16384
+# reads of a world's Brent A/B and of the profiled place passes of phases
+# 15 and 17, cut from 65,536: the time to read a profile grows with its
+# ~10^5 launches
+AB_READS = 16384
 # (world, command, engine hook, value, where the ladder must end, epilogue
 # kernel) of the forced overflow runs of phase 32
 LADDER_RUNS = (
@@ -601,6 +637,7 @@ def kernels_vs_plain():
         else:
             result.setdefault("dma_gather", r)
         del tab, idx
+    result["brent_llh"] = brent_vs_plain()
     return result
 
 
@@ -633,6 +670,307 @@ def kept_batch(name: str, world: str, kstats: dict, key: str = "batch",
                          f"{key}_max_abs_err": r["max_abs_err"]})
     del args, want
     torch.cuda.empty_cache()
+
+
+def brent_llh_ops(k: int, th: int) -> int:
+    """f64 operations of one likelihood evaluation in csrc/brent_llh.cu (a
+    log and a division counted as one each): 1 - d, the powers of (1 - d)
+    by squaring, two logs, a subtraction, a division, five a class of
+    0..th, and 12 to combine them."""
+    return 17 + (k.bit_length() - 1) + (bin(k).count("1") - 1) + 5 * (th + 1)
+
+
+def brent_bound(args):
+    """(bound ms, what bounds it, lane-steps, selected lanes, operations,
+    bytes) of brent_llh
+    on `args`: each input read and each output written once at 3.35 TB/s,
+    against the f64 operations of the lane-steps these inputs take (counted
+    by the plain form's lane_steps hook) at F64_OPS_PER_S."""
+    from krepp_tpu_torch.core import llh
+
+    A, Bx, uc, rho, mask, k, h, th = args
+    llh.brent_find_minima.lane_steps = 0
+    try:
+        llh.brent_llh_ref(*args)
+        steps = llh.brent_find_minima.lane_steps
+    finally:
+        llh.brent_find_minima.lane_steps = None
+    lanes = uc.numel() if mask is None else int(mask.sum())
+    ops = (lanes + steps) * brent_llh_ops(k, th) + steps * BRENT_STEP_OPS
+    moved = nbytes(A, Bx, uc, rho, mask) + 2 * nbytes(uc)
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F64_OPS_PER_S * 1e3
+    return (max(by_bytes, by_ops), "operations" if by_ops >= by_bytes
+            else "bytes", steps, lanes, ops, moved)
+
+
+def brent_compare(label: str, args, main: bool, tag=3):
+    """brent_llh against its plain form on the same lanes: the largest
+    |d| and |v| differences (BRENT_TOL at most, 0 the aim) and the lanes
+    whose bits differ; at `main` also the kernel's and the plain form's
+    times and the bound."""
+    import torch
+
+    from krepp_tpu_torch.query import kernels
+
+    got = kernels.brent_llh(*args)
+    want = kernels.brent_llh_ref(*args)
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max()) if g.numel() else 0.0
+            for g, w in zip(got, want)]
+    differ = int(sum((g.view(torch.int64) != w.view(torch.int64))
+                     for g, w in zip(got, want)).count_nonzero()) \
+        if got[0].numel() else 0
+    N = args[2].numel()
+    check(all(e <= BRENT_TOL for e in errs),
+          f"brent_llh != plain at {label}: max |dd| {errs[0]}, |dv| {errs[1]}")
+    line = (f"brent_llh {label}: max |dd| {errs[0]:g}, max |dv| {errs[1]:g}, "
+            f"{differ} of {N} lanes differ in bits")
+    if not main:
+        phase(tag, line)
+        return None
+    bound_ms, bound_by, steps, lanes, ops, moved = brent_bound(args)
+    ms = cuda_median_ms(lambda: kernels.brent_llh(*args))
+    plain_ms = cuda_median_ms(lambda: kernels.brent_llh_ref(*args), reps=3,
+                              warmup=1, launches=1)
+    phase(tag, line + f"; {lanes} lanes selected, {steps} lane-steps "
+          f"({steps / max(lanes, 1):.2f} a lane); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (median); bound {bound_ms:.4f} ms, by "
+          f"{bound_by} ({ops} f64 operations: "
+          f"{brent_llh_ops(args[5], args[7])} an evaluation, "
+          f"{BRENT_STEP_OPS} a step, at 34 TFLOP/s; {moved} "
+          f"bytes at 3.35 TB/s), {100 * bound_ms / ms:.1f}% of it reached; "
+          f"no single PyTorch call computes this")
+    return dict(max_abs_err=max(errs), max_abs_err_d=errs[0],
+                max_abs_err_v=errs[1], lanes_differing=differ, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, lane_steps=steps, lanes=lanes)
+
+
+def brent_vs_plain():
+    """brent_llh against its plain form on synthetic lanes: the main shape
+    (a many-dist batch's stage 2) and edges; then one call with CUDA's sync
+    debug mode set to "error" (the kernel's path must not sync; the plain
+    form's does, once for its lane count and every 8 iterations)."""
+    import numpy as np
+    import torch
+
+    from krepp_tpu_torch.query import kernels
+    from krepp_tpu_torch.testing import brent_inputs
+
+    rng = np.random.default_rng(41)
+    cases = [  # (label, shape, k, h, th, selected share, mask given)
+        (f"main N={BRENT_LANES} k=29 h=13 th=4, 30% selected (a many-dist "
+         "batch's stage 2)", (BRENT_LANES,), 29, 13, 4, 0.3, True),
+        ("seek N=512 k=26 h=10, mask None", (512,), 26, 10, 4, 1.0, False),
+        ("odd N=777", (777,), 29, 13, 4, 0.3, True),
+        ("N=1", (1,), 29, 13, 4, 1.0, True),
+        ("none selected", (4096,), 29, 13, 4, 0.0, True),
+        ("all selected", (4096,), 29, 13, 4, 1.0, True),
+        ("th=0", (4096,), 29, 13, 0, 0.5, True),
+        ("th=7", (4096,), 29, 13, 7, 0.5, True),
+        ("k=27 h=11", (4096,), 27, 11, 4, 0.5, True),
+        ("[4194, 47] 5% selected (place's dense stage 3)", (4194, 47), 27,
+         11, 4, 0.05, True),
+        ("N=0", (0,), 29, 13, 4, 0.3, True),
+    ]
+    result = None
+    for i, (label, shape, k, h, th, keep, masked) in enumerate(cases):
+        *lanes, mask = brent_inputs(rng, shape, th, keep=keep)
+        args = tuple(torch.from_numpy(a).cuda() for a in lanes) + (
+            torch.from_numpy(mask).cuda() if masked else None, k, h, th)
+        r = brent_compare(label, args, i == 0)
+        if i == 0:
+            result, main_args = r, args
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.brent_llh(*main_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.brent_llh_ref(*main_args)
+        plain = "did not raise"
+    except RuntimeError as e:
+        plain = f"raised ({str(e).splitlines()[0][:80]})"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    phase(3, f"brent_llh at the main shape under "
+             f"torch.cuda.set_sync_debug_mode('error'): no sync; the plain "
+             f"form under the same mode {plain}")
+    return result
+
+
+def kept_brent(label: str, kstats: dict, key: str, tag="3b"):
+    """brent_llh on the arguments its wrapper kept from a launch of the
+    main path (its `keep_next` hook): against the plain form, with times
+    and bound as in phase 3, kept in kstats["brent_llh"] under `key`_ms
+    etc."""
+    import torch
+
+    from krepp_tpu_torch.query import kernels
+
+    args = kernels.brent_llh.kept
+    check(args is not None and not kernels.brent_llh.keep_next,
+          f"brent_llh kept no launch of {label}")
+    kernels.brent_llh.kept = None
+    shape = "x".join(str(n) for n in args[2].shape)
+    r = brent_compare(f"{label}, lanes [{shape}] k={args[5]} h={args[6]} "
+                      f"th={args[7]}", args, True, tag=tag)
+    kstats["brent_llh"].update({f"{key}_{name}": r[name] for name in (
+        "ms", "plain_ms", "bound_ms", "max_abs_err", "lanes_differing",
+        "lanes", "lane_steps")})
+    A, Bx, uc, rho, mask, k, h, th = args
+    want = kernels.brent_llh(*args)
+
+    def compacted():
+        # the plain form's compaction around the kernel: a sync for the
+        # lane count, gathers, one launch on the kept lanes, scatters back
+        idx = torch.nonzero(mask.reshape(-1)).squeeze(1)
+        d, v = kernels.brent_llh(*(t.reshape(-1)[idx] for t in (A, Bx, uc,
+                                                                 rho)),
+                                 None, k, h, th)
+        D, V = torch.zeros_like(uc), torch.zeros_like(uc)
+        D.view(-1)[idx] = d
+        V.view(-1)[idx] = v
+        return D, V
+
+    check(all(torch.equal(g, w) for g, w in zip(compacted(), want)),
+          f"brent_llh on compacted lanes differs at {label}")
+    ms = cuda_median_ms(compacted)
+    kstats["brent_llh"][f"{key}_compacted_ms"] = ms
+    phase(tag, f"brent_llh {label}: {ms:.4f} ms with the lanes compacted "
+               f"first (nonzero, gathers, scatters) against {r['ms']:.4f} ms "
+               f"in one launch over all {uc.numel()} lanes")
+    del args, want
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def keep_stage3_brent():
+    """brent_llh keeps the arguments of the first stage-3 (candidate)
+    solve of the place run inside the block (stage 2 solves first)."""
+    from krepp_tpu_torch.query import kernels
+    from krepp_tpu_torch.query.place import PlaceAggregator
+
+    orig = PlaceAggregator._brent_candidates
+
+    def first(self, *args):
+        PlaceAggregator._brent_candidates = orig
+        kernels.brent_llh.keep_next = True
+        return orig(self, *args)
+
+    PlaceAggregator._brent_candidates = first
+    try:
+        yield
+    finally:
+        PlaceAggregator._brent_candidates = orig
+
+
+@contextlib.contextmanager
+def plain_brent():
+    """The plain form (brent_llh_ref) in place of brent_llh at every call
+    site (query/engine.py: stage 2 and seek; query/place.py: stage 3) for
+    the block: the A/B's other side. No switch of the package does this."""
+    from krepp_tpu_torch.core import llh
+    from krepp_tpu_torch.query import engine, place
+
+    saved = engine.brent_llh, place.brent_llh
+    engine.brent_llh = place.brent_llh = llh.brent_llh_ref
+    try:
+        yield
+    finally:
+        engine.brent_llh, place.brent_llh = saved
+
+
+def device_profile(one_pass):
+    """One pass under torch.profiler, read from its raw events (no
+    operator tree, so quick at 10^5 launches): (wall ms with the profiler
+    on, device ms: the device's own entries, cudaLaunchKernel calls,
+    device entries)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = entries = dev_ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            entries += 1
+            dev_ns += e.duration_ns()
+        elif e.name() == "cudaLaunchKernel":
+            launches += 1
+    check(launches > 0, "the profile holds no cudaLaunchKernel")
+    return wall * 1e3, dev_ns / 1e6, launches, entries
+
+
+def brent_ab(n, label: str, run_one, root: str, card: str):
+    """The Brent A/B of one world inside this call: passes of the same
+    AB_READS reads in turn (plain form, kernel, kernel, plain form; the
+    plain form patched in by plain_brent), each report byte for byte the
+    first; reads/s of each; then one profiled pass of each: launches,
+    device entries and device ms a pass. run_one(out) runs one pass with
+    its report in the file `out` and returns the reads."""
+    import filecmp
+
+    import torch
+
+    from krepp_tpu_torch.query import kernels
+
+    def side(name):
+        return plain_brent() if name == "plain" else contextlib.nullcontext()
+
+    rates = {"plain": [], "kernel": []}
+    first = None
+    for i, name in enumerate(("plain", "kernel", "kernel", "plain")):
+        out = os.path.join(root, f"ab_{label.replace(' ', '_')}_{i}.out")
+        kernels.brent_llh.launches = 0
+        with side(name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nr = run_one(out)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launched = kernels.brent_llh.launches
+        check((launched > 0) == (name == "kernel"),
+              f"{label}: brent_llh launched {launched} times in a {name} "
+              "pass")
+        check(nr == AB_READS, f"{label}: {nr} reads of {AB_READS}")
+        rates[name].append(nr / dt)
+        if first is None:
+            first = out
+        else:
+            check(filecmp.cmp(first, out, shallow=False),
+                  f"{label}: the {name} pass's report differs from the "
+                  "plain form's")
+    prof = {}
+    for name in ("plain", "kernel"):
+        with side(name):
+            prof[name] = device_profile(lambda: run_one(os.devnull))
+    res = {}
+    turns = {"plain": "1, 4", "kernel": "2, 3"}
+    for name in ("plain", "kernel"):
+        wall, dev, launches, entries = prof[name]
+        res[name] = dict(reads_per_s=rates[name], launches=launches,
+                         device_entries=entries, device_ms=dev,
+                         profiled_wall_ms=wall)
+        phase(n, f"Brent A/B, {label}, {name}: "
+                 f"{' / '.join(f'{r:.1f}' for r in rates[name])} reads/s "
+                 f"({AB_READS} reads, passes {turns[name]} of 4 in turn); "
+                 f"profiled pass: {launches} cudaLaunchKernel, "
+                 f"{entries} device entries, {dev:.3f} ms device time, "
+                 f"{wall:.1f} ms wall (profiler on) on {card}")
+    gain = statistics.mean(rates["kernel"]) / statistics.mean(rates["plain"])
+    phase(n, f"Brent A/B, {label}: the four reports byte for byte equal; "
+             f"kernel / plain reads/s {gain:.3f}x, launches "
+             f"{prof['plain'][2]} -> {prof['kernel'][2]}")
+    return res
 
 
 def make_world(cfg: dict, root: str, tag: str):
@@ -805,10 +1143,10 @@ def run_cli(argv):
 
 def counted_run(argv, launched, total: dict):
     """run_cli with every kernel count set to 0 just before and read just
-    after: `launched` must have run and the other epilogue kernel not; with
-    launched None (the event probe and seek, which run no kernel) neither
-    epilogue kernel may run. Adds the counts to `total`; returns (stats,
-    counts, seconds)."""
+    after: brent_llh and `launched` must have run and the other epilogue
+    kernel not; with launched None (the event probe and seek, which run no
+    epilogue kernel) neither epilogue kernel may run. Adds the counts to
+    `total`; returns (stats, counts, seconds)."""
     from krepp_tpu_torch.query import kernels
 
     for name in KERNELS:
@@ -818,6 +1156,7 @@ def counted_run(argv, launched, total: dict):
     dt = time.time() - t0
     counts = {name: getattr(kernels, name).launches for name in KERNELS}
     check(rc == 0, f"cli returned {rc}")
+    check(counts["brent_llh"] > 0, "brent_llh was not launched on this path")
     if launched is None:
         check(not any(counts[e] for e in EPILOGUES),
               f"an epilogue kernel was launched on this path: {counts}")
@@ -921,7 +1260,8 @@ def throughput(n: int, name: str, idx: str, fq: str, card: str,
     warm-up, then 3 timed passes, with the tier re-runs of each pass and
     the peak device memory (tables included); fetch_ms adds the host time
     a batch spends in fetch_prefetched (the [B, S] host arrays of dist).
-    Returns a function running one more pass (of `reads`, default fq)."""
+    Returns a function running one more pass (of `reads`, default fq; its
+    report into the file `out`)."""
     import torch
 
     from krepp_tpu_torch.index.artifact import load_index
@@ -930,8 +1270,8 @@ def throughput(n: int, name: str, idx: str, fq: str, card: str,
     if eng is None:
         eng = QueryEngine(load_index(idx), 4, device="cuda")
 
-    def one_pass(stats=None, reads=fq):
-        return run_query(eng, cmd, reads, stats=stats)
+    def one_pass(stats=None, reads=fq, out=os.devnull):
+        return run_query(eng, cmd, reads, out, stats=stats)
 
     fetch_s = []
     flags = set()
@@ -1137,8 +1477,8 @@ def read_seek_rows(path: str, nreads: int):
 
 
 def seek_on_card(n: int, sk: str, fq: str, out: str, total: dict):
-    """seek through the CLI on cuda (no kernel on its path; the direct
-    bucket-row table for a shallow sketch)."""
+    """seek through the CLI on cuda (brent_llh the one kernel on its path;
+    the direct bucket-row table for a shallow sketch)."""
     stats, counts, dt = counted_run(["seek", "-q", fq, "-i", sk, "-o", out,
                                      "--device", "cuda"], None, total)
     check(stats["mode"] == "direct", f"seek mode {stats['mode']}")
@@ -1173,19 +1513,25 @@ def seek_vs_host(n: int, sk: str, fq_cpu: str, out_gpu: str, out_cpu: str,
 
 
 def seek_throughput(n: int, sk: str, fq: str, card: str):
-    """seek reads/s (sketch loaded once): a warm-up, then 3 timed passes."""
+    """seek reads/s (sketch loaded once): a warm-up, then 3 timed passes.
+    Returns a function running one more pass, its report into the file
+    `out`."""
     import torch
 
     from krepp_tpu_torch.index.artifact import load_sketch_reference
     from krepp_tpu_torch.query.seek import run_seek
 
     sketch = load_sketch_reference(sk)
+
+    def one_pass(out=os.devnull):
+        with open(out, "w") as f:
+            return run_seek(sketch, fq, f, "smoke", device="cuda")
+
     rates = []
     for rep in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with open(os.devnull, "w") as sink:
-            nr = run_seek(sketch, fq, sink, "smoke", device="cuda")
+        nr = one_pass()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if rep:
@@ -1194,6 +1540,7 @@ def seek_throughput(n: int, sk: str, fq: str, card: str):
                      f"on {card}")
     phase(n, f"seek: median {statistics.median(rates):.1f} reads/s, spread "
              f"{max(rates) / min(rates):.3f}x (max/min of 3) on {card}")
+    return one_pass
 
 
 def sketch_world(n: int, root: str):
@@ -1768,6 +2115,8 @@ def ranks_on_card(n: int, root: str, worlds: dict, singles: dict,
             check(not res["imported"], f"{label}: rank {r} imported "
                                        f"{res['imported']}")
             stats, counts = res["stats"], res["launches"]
+            check(counts["brent_llh"] > 0,
+                  f"{label}: rank {r} did not launch brent_llh")
             check(stats["mode"] == mode and len(stats["escalations"]) == 1,
                   f"{label}: rank {r} ran mode {stats['mode']} in "
                   f"{len(stats['escalations'])} batches")
@@ -2335,7 +2684,10 @@ def huge_world(n: int, root: str, card: str, total: dict):
         got = os.path.join(root, f"huge_mesh1x{shards}.tsv")
         run_query(eng, "dist", fq, got, invocation=inv)
         counts = {k: getattr(kernels, k).launches for k in KERNELS}
-        check(not any(counts.values()), f"{label} launched {counts}")
+        check(counts["brent_llh"] > 0 and not any(
+            c for k, c in counts.items() if k != "brent_llh"),
+            f"{label} launched {counts}")
+        total["brent_llh"] += counts["brent_llh"]
         phase(n, f"{label}: {time.time() - t0:.2f} s with its tables, peak "
                  f"device memory "
                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
@@ -2387,6 +2739,7 @@ def main() -> int:
     with timed(3, "kernels vs plain"):
         kstats = kernels_vs_plain()
     launches = {name: 0 for name in KERNELS}
+    ab = {}                 # the Brent A/B of each world
 
     with tempfile.TemporaryDirectory(prefix="krepp_smoke_") as root:
         with timed(4, "base world"):
@@ -2465,7 +2818,14 @@ def main() -> int:
             kept_batch("probe_hist_tiles", "wide", kstats)
             gpu_vs_cpu(11, widx, wfq_cpu, wout,
                        os.path.join(root, "wide_cpu.tsv"), WIDE_CPU_READS)
-            profile_pass(11, throughput(11, "wide", widx, wfq, card))
+            run = throughput(11, "wide", widx, wfq, card)
+            profile_pass(11, run)
+            whead = head_fastq(wfq, os.path.join(root, "wide_head.fq"),
+                               AB_READS)
+            ab["wide dist"] = brent_ab(
+                11, "wide dist", lambda out: run(reads=whead, out=out), root,
+                card)
+            del run
 
         with timed(12, "probe microbenchmark"):
             microbench(12, launches)
@@ -2488,9 +2848,7 @@ def main() -> int:
         with timed(15, "place reads/s"):
             throughput(15, "base", idx, fq, card, cmd="place")
             run = throughput(15, "wide", widx, wfq, card, cmd="place")
-            head = head_fastq(wfq, os.path.join(root, "wide_head.fq"),
-                              PROFILE_PLACE_READS)
-            profile_pass(15, lambda: run(reads=head))
+            profile_pass(15, lambda: run(reads=whead))
             del run         # its engine's tables would stay on the card
 
         with timed(16, "many world dist"):
@@ -2501,23 +2859,35 @@ def main() -> int:
             phase(16, f"many world: {nnk} k-mers, 1000 leaves, built in "
                       f"{ndt:.1f} s")
             nout = os.path.join(root, "many_gpu.tsv")
+            kernels.brent_llh.keep_next = True
             dist_on_card(16, nidx, nfq, nout, MANY_READS, None, ("se", 32),
                          launches, mode="event")
+            kept_brent("a many-dist batch (stage 2)", kstats, "dist_batch")
             gpu_vs_cpu(16, nidx, nfq_cpu, nout,
                        os.path.join(root, "many_cpu.tsv"), WIDE_CPU_READS)
-            profile_pass(16, throughput(16, "many", nidx, nfq, card))
+            run = throughput(16, "many", nidx, nfq, card)
+            profile_pass(16, run)
+            nhead = head_fastq(nfq, os.path.join(root, "many_head.fq"),
+                               AB_READS)
+            ab["many dist"] = brent_ab(
+                16, "many dist", lambda out: run(reads=nhead, out=out), root,
+                card)
+            del run
 
         with timed(17, "many place"):
             npout = os.path.join(root, "many_gpu.jplace")
-            place_on_card(17, nidx, nfq, npout, MANY_READS, None, "lanes",
-                          launches, mode="event")
+            with keep_stage3_brent():
+                place_on_card(17, nidx, nfq, npout, MANY_READS, None, "lanes",
+                              launches, mode="event")
+            kept_brent("a many-place batch (stage 3)", kstats, "place_batch")
             place_vs_host(17, nidx, nfq_cpu, npout, MANY_READS,
                           os.path.join(root, "many_cpu.jplace"),
                           WIDE_CPU_READS)
             run = throughput(17, "many", nidx, nfq, card, cmd="place")
-            head = head_fastq(nfq, os.path.join(root, "many_head.fq"),
-                              PROFILE_PLACE_READS)
-            profile_pass(17, lambda: run(reads=head))
+            profile_pass(17, lambda: run(reads=nhead))
+            ab["many place"] = brent_ab(
+                17, "many place", lambda out: run(reads=nhead, out=out), root,
+                card)
             del run         # its engine's tables would stay on the card
 
         with timed(18, "seek"):
@@ -2526,9 +2896,10 @@ def main() -> int:
             seek_on_card(18, sk, sfq, sout, launches)
             seek_vs_host(18, sk, sfq_cpu, sout,
                          os.path.join(root, "seek_cpu.tsv"), CPU_READS)
-            seek_throughput(18, sk, head_fastq(
-                sfq, os.path.join(root, "seek_timed.fq"), SEEK_TIMED_READS),
-                card)
+            shead = head_fastq(sfq, os.path.join(root, "seek_timed.fq"),
+                               SEEK_TIMED_READS)
+            ab["seek"] = brent_ab(18, "seek", seek_throughput(
+                18, sk, shead, card), root, card)
 
         with timed(19, "inspect"):
             inspect_base(19, idx, nk)
@@ -2566,6 +2937,7 @@ def main() -> int:
           f"the run imported {reference_modules()}")
     phase(21, f"none of {', '.join(BLOCKED)} in sys.modules; total "
               f"{time.time() - t_start:.1f} s")
+    kstats["brent_llh"]["ab"] = ab
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"krepp_tpu_torch/csrc/{name}.cu",

@@ -5,15 +5,27 @@ semantics: src/hdhistllh.hpp:71-89 and boost's brent_find_minima as used
 by src/query.cpp:426-433). The card has native f64, so the float-float
 scatters of the TPU version are plain index writes here.
 
-Host syncs: the Brent loop checks `all(done)` every BRENT_SYNC_EVERY
-iterations (one sync each) instead of every iteration; lanes that are done
-are frozen, so the extra iterations change nothing and the loop still stops
-at exactly max_iter. brent_on_mask compacts to the exact kept lane set
-(one sync for its size).
+`brent_llh` is the one entry point of the query paths: on the card it
+launches the hand-written kernel `csrc/brent_llh.cu` (Brent over the
+moment-form llh, every lane to its own stop in one launch, no host sync:
+the counterpart of the reference's on-device `jax.lax.while_loop`), on the
+host it runs the plain form `brent_llh_ref`. The plain form is
+`brent_find_minima` over `make_llh_fast`, through `brent_on_mask`: it
+checks `all(done)` every BRENT_SYNC_EVERY iterations (one sync each);
+lanes that are done are frozen, so the extra iterations change nothing and
+the loop still stops at exactly max_iter; brent_on_mask compacts to the
+exact kept lane set (one sync for its size). `brent_llh.launches` counts
+kernel launches; with `brent_llh.keep_next = True` the next launch leaves
+copies of its arguments in `brent_llh.kept`, and with
+`brent_find_minima.lane_steps = 0` the plain form adds up the lane-steps
+it takes (a sync an iteration): measurement hooks that nothing in the
+package sets.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -29,6 +41,7 @@ _BRENT_LO = 1e-10
 _BRENT_HI = 0.5
 _MAX_ITER = 200
 BRENT_SYNC_EVERY = 8
+MAX_BRENT_K = 32      # the kernel's room for its tables (th <= k entries)
 
 
 def binom_tables(k: int, h: int, hdist_th: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -229,6 +242,8 @@ def brent_find_minima(f, batch_shape, device, lo: float = _BRENT_LO,
         v2 = where(cond_v, u, v2)
         fv2 = where(cond_v, fu, fv2)
 
+        if brent_find_minima.lane_steps is not None:
+            brent_find_minima.lane_steps += int(act.sum())
         done = done | newly_done
         mn = where(act, mn2, mn)
         mx = where(act, mx2, mx)
@@ -241,6 +256,9 @@ def brent_find_minima(f, batch_shape, device, lo: float = _BRENT_LO,
         delta = where(act, new_delta, delta)
         delta2 = where(act, new_delta2, delta2)
     return x, fx
+
+
+brent_find_minima.lane_steps = None
 
 
 def brent_on_mask(llh_fast, A, Bx, uc, rho, mask):
@@ -265,3 +283,101 @@ def brent_on_mask(llh_fast, A, Bx, uc, rho, mask):
     D[idx] = d
     V[idx] = v
     return D.reshape(shape), V.reshape(shape)
+
+
+# ------------------------------------------------------ Brent as one kernel
+def _check_brent(A, Bx, uc, rho, mask, k: int, h: int, th: int):
+    """Validate the brent_llh contract."""
+    ts = (A, Bx, uc, rho) + (() if mask is None else (mask,))
+    if any(t.shape != uc.shape for t in ts):
+        raise ValueError("shape mismatch: " + ", ".join(
+            str(tuple(t.shape)) for t in ts))
+    if any(t.dtype != F for t in (A, Bx, uc, rho)) or (
+            mask is not None and mask.dtype != torch.bool):
+        raise TypeError("A, Bx, uc, rho must be float64 and mask bool, got "
+                        + ", ".join(str(t.dtype) for t in ts))
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("A, Bx, uc, rho and mask must share one device")
+    if not 1 <= h <= k <= MAX_BRENT_K:
+        raise ValueError(f"k={k}, h={h}: need 1 <= h <= k <= {MAX_BRENT_K}")
+    if not 0 <= th <= k:     # binom_k[x] exists for x <= k
+        raise ValueError(f"th={th} is outside brent_llh's range 0..{k} "
+                         f"(k={k})")
+
+
+def brent_llh_ref(A: torch.Tensor, Bx: torch.Tensor, uc: torch.Tensor,
+                  rho: torch.Tensor, mask, k: int, h: int, th: int):
+    """Plain torch version of brent_llh (same contract): brent_find_minima
+    over make_llh_fast, on the mask-selected lanes (brent_on_mask) or, with
+    mask None, on every lane."""
+    _check_brent(A, Bx, uc, rho, mask, k, h, th)
+    f = make_llh_fast(k, h, th)
+    if mask is None:
+        return brent_find_minima(lambda dd: f(dd, A, Bx, uc, rho), uc.shape,
+                                 uc.device)
+    return brent_on_mask(f, A, Bx, uc, rho, mask)
+
+
+@functools.lru_cache(maxsize=None)
+def _binom_on(k: int, h: int, th: int, device: torch.device):
+    """binom_k[0..th] then binom_hnk[0..th], f64, on `device` (uploaded
+    once: the copy from host memory syncs)."""
+    binom_k, binom_hnk = binom_tables(k, h, th)
+    tab = np.concatenate([binom_k[: th + 1], binom_hnk])
+    return torch.from_numpy(tab).to(device)
+
+
+def _brent_launcher():
+    from ..csrc.build import load
+
+    fn = load("brent_llh").krepp_brent_llh
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4)
+    return fn
+
+
+def brent_llh(A: torch.Tensor, Bx: torch.Tensor, uc: torch.Tensor,
+              rho: torch.Tensor, mask, k: int, h: int, th: int):
+    """Brent's minimiser of the moment-form llh per lane -> (d, v).
+
+    A, Bx, uc, rho: f64 of one shape, contiguous, on one device; mask: bool
+    of that shape, or None for every lane. d is the arg-min in [1e-10,
+    0.5], v the minimum; a lane outside the mask gets d = v = 0.0 (callers
+    gate on their own masks). The CUDA kernel csrc/brent_llh.cu for CUDA
+    tensors, the plain version (brent_llh_ref) for host tensors."""
+    if uc.device.type == "cpu":
+        return brent_llh_ref(A, Bx, uc, rho, mask, k, h, th)
+    if uc.device.type != "cuda":
+        raise ValueError(f"unsupported device {uc.device}")
+    _check_brent(A, Bx, uc, rho, mask, k, h, th)
+    for name, t in (("A", A), ("Bx", Bx), ("uc", uc), ("rho", rho),
+                    ("mask", mask)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    d = torch.empty_like(uc)
+    v = torch.empty_like(uc)
+    N = uc.numel()
+    if N == 0:
+        return d, v
+    if brent_llh.keep_next:
+        brent_llh.keep_next = False
+        brent_llh.kept = (A.clone(), Bx.clone(), uc.clone(), rho.clone(),
+                          None if mask is None else mask.clone(), k, h, th)
+    tab = _binom_on(k, h, th, uc.device)
+    fn = _brent_launcher()
+    with torch.cuda.device(uc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(A.data_ptr(), Bx.data_ptr(), uc.data_ptr(), rho.data_ptr(),
+                0 if mask is None else mask.data_ptr(), N, k, th,
+                tab.data_ptr(), d.data_ptr(), v.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"brent_llh launch failed: cudaError {rc}")
+    brent_llh.launches += 1
+    return d, v
+
+
+brent_llh.launches = 0
+brent_llh.keep_next = False
+brent_llh.kept = None

@@ -5,7 +5,9 @@ and compiles on its own into a shared library (no PyTorch headers, so a
 build takes seconds), loaded with ctypes. The library lands in `_build/`
 beside the sources, named by a hash of the source, the directory's
 headers (`*.cuh`) and the flags, so an edited source or header rebuilds
-and a stale library is never loaded. nvcc writes to
+and a stale library is never loaded. Every kernel takes `NVCC_FLAGS`; a
+kernel named in `KERNEL_FLAGS` adds its own after them (part of its
+hash, so the others' libraries are unchanged). nvcc writes to
 a temporary name that is renamed into place, so a concurrent loader never
 opens a half-written library. nvcc's output (ptxas register and spill
 report included) is kept next to it as `<library>.log`. `build` starts one
@@ -30,6 +32,9 @@ CSRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(CSRC_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# brent_llh: no multiply-add contraction anywhere in the source, so every
+# f64 operation rounds as the plain form's separate eager ops do
+KERNEL_FLAGS = {"brent_llh": ("-fmad=false",)}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -51,6 +56,11 @@ def nvcc_path() -> str:
     return found
 
 
+def flags(name: str):
+    """nvcc's flags for csrc/<name>.cu."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def _paths(name: str):
     """(source, library) paths of csrc/<name>.cu."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
@@ -59,7 +69,7 @@ def _paths(name: str):
     for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -75,15 +85,15 @@ def build(names: Sequence[str]) -> List[str]:
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.Popen([nvcc_path(), *flags(name), "-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
-        jobs.append((src, out, tmp, time.time(), proc))
+        jobs.append((name, src, out, tmp, time.time(), proc))
     failed = []
-    for src, out, tmp, t0, proc in jobs:
+    for name, src, out, tmp, t0, proc in jobs:
         stdout, stderr = proc.communicate()
         with open(out + ".log", "w") as f:
-            f.write(f"# nvcc {' '.join(NVCC_FLAGS)} "
+            f.write(f"# nvcc {' '.join(flags(name))} "
                     f"({time.time() - t0:.2f} s)\n")
             f.write(stdout + stderr)
         if proc.returncode != 0:

@@ -37,8 +37,7 @@ import torch
 from .. import resolve_device
 from ..core import codec
 from ..core.compact import compact_mask_indices, compact_mask_indices_strided
-from ..core.llh import (F, brent_find_minima, brent_on_mask, make_llh,
-                        make_llh_fast, make_llh_np)
+from ..core.llh import F, brent_llh, make_llh, make_llh_np
 from ..index.index import DeviceIndex, DeviceSketch
 from .bucket_scan import (_scan_loop, make_expander, probe_strand,
                           probe_strand_full, scan_buckets_min)
@@ -190,7 +189,6 @@ class QueryEngine:
             np.asarray(dindex.rho_slot, np.float64)).to(dev)
         self._expand = make_expander(self.S, self.W)
         self._llh = make_llh(self.lsh.k, self.lsh.h, self.th)
-        self._llh_fast = make_llh_fast(self.lsh.k, self.lsh.h, self.th)
         self._rows = _RowMap(dindex, dev)
         self._heavy_frac = self._measure_heavy_frac(dindex)
         self._heavy_cap_override = None    # test hook: tiny heavy caps
@@ -755,7 +753,8 @@ class QueryEngine:
         rho2 = torch.cat([rho_l, rho_l])
         # the solver runs only on strand-lanes that pass the keep gate
         keep2 = torch.cat([keep_or, keep_rc])
-        d2, v2 = brent_on_mask(self._llh_fast, A2, Bx2, uc2, rho2, keep2)
+        d2, v2 = brent_llh(A2, Bx2, uc2, rho2, keep2, self.lsh.k, self.lsh.h,
+                           th)
         K = idx.shape[0]
         d_or = torch.where(keep_or, d2[:K], D_MAX)
         d_rc = torch.where(keep_rc, d2[K:], D_MAX)
@@ -1179,7 +1178,6 @@ class SeekEngine:
         self.th = int(hdist_th)
         self.lsh = sketch.lsh
         self._rows = _RowMap(sketch, self.device)
-        self._llh_fast = make_llh_fast(self.lsh.k, self.lsh.h, self.th)
         slots = self._build_direct_table(sketch)
         if slots is not None:
             self.mode = "direct"
@@ -1247,9 +1245,8 @@ class SeekEngine:
             hist = (gmin[..., None] == xs).sum(dim=1)    # [B, th+1]
             matchc = hist.sum(dim=-1).to(F)
             bx = (hist * xs).sum(dim=-1).to(F)
-            d, _ = brent_find_minima(
-                lambda dd, a=matchc, b=bx, uc=onmers - matchc:
-                self._llh_fast(dd, a, b, uc, rho), (B,), dev)
+            d, _ = brent_llh(matchc, bx, onmers - matchc, rho, None, k,
+                             self.lsh.h, self.th)
             outs.append((matchc, d))
         (mc_or, d_or), (mc_rc, d_rc) = outs
         return (mc_or + mc_rc) > 0, torch.where(d_or < d_rc, d_or, d_rc)

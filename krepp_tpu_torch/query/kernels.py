@@ -11,6 +11,9 @@ krepp_tpu/query/pallas_kernels.py:
     with its C candidates;
   * `dma_gather` (tools/probe_microbench.py:157-191): a row gather of a
     narrow u32 table, the bucket-row gather's shape.
+`brent_llh` (Brent's minimiser as one kernel, replacing the reference's
+on-device `while_loop`; core/llh.py) is imported here too, so that every
+hand-written kernel's wrapper and launch count is found in this module.
 A wrapper launches its kernel for CUDA tensors and uses its plain torch
 version (`<name>_ref`, the same contract) only for tensors on the host. It
 never falls back from a failed build or launch. `<name>.launches` counts
@@ -28,6 +31,7 @@ import ctypes
 import torch
 
 from ..core.codec import hdist_lr32
+from ..core.llh import brent_llh, brent_llh_ref  # noqa: F401
 
 HD_SENTINEL = 255          # "no match" Hamming distance marker
 MAX_X = 6

@@ -36,7 +36,7 @@ from ..reports import (begin_jplace, end_jplace, fmt5, fmt5_array,
 
 from ..core import codec
 from ..core.compact import compact_mask_indices
-from ..core.llh import F, brent_on_mask, make_llh_np
+from ..core.llh import F, brent_llh, make_llh_np
 from ..index.index import DeviceIndex, PlacementView
 from ..io import native_report
 from ..io.fastx import QueryBatcher
@@ -93,7 +93,6 @@ class PlaceAggregator:
         self._is_leaf_q = t(leaf_of_q >= 0)
         self._rho_slot = engine._rho_slot
         self._llh = engine._llh
-        self._llh_fast = engine._llh_fast
         # structural candidate gate: eff_nchildren-covered internal nodes
         # with a parent (ref: src/query.cpp:268-281)
         self._cand_struct = t(pv.candidate_ok & (pv.qflat.parent != 0))
@@ -170,9 +169,9 @@ class PlaceAggregator:
 
         # re-optimise supported internal nodes (ref: src/query.cpp:272-275)
         xs = torch.arange(hist_q.shape[-1], dtype=F, device=hist_q.device)
-        d_opt, v_opt = brent_on_mask(self._llh_fast, hist_q.sum(dim=-1),
-                                     (hist_q * xs).sum(dim=-1), uc_q, rho_q,
-                                     support & ~isl)
+        d_opt, v_opt = brent_llh(hist_q.sum(dim=-1), (hist_q * xs).sum(dim=-1),
+                                 uc_q, rho_q, support & ~isl, k,
+                                 self.engine.lsh.h, self.engine.th)
         d_q = torch.where(isl, d[:, lq], d_opt)
         v_q = torch.where(isl, v[:, lq], v_opt)
         leq_tau = hist_q[..., : self.cfg.tau + 1].sum(dim=-1)
@@ -206,8 +205,9 @@ class PlaceAggregator:
     def _brent_candidates(self, c_hist, uc_c, rho_c, solve):
         """Brent on the compacted candidate lanes where `solve`."""
         xs = torch.arange(c_hist.shape[1], dtype=F, device=c_hist.device)
-        return brent_on_mask(self._llh_fast, c_hist.sum(dim=1),
-                             (c_hist * xs).sum(dim=1), uc_c, rho_c, solve)
+        lsh = self.engine.lsh
+        return brent_llh(c_hist.sum(dim=1), (c_hist * xs).sum(dim=1), uc_c,
+                         rho_c, solve, lsh.k, lsh.h, self.engine.th)
 
     def _read_gate(self, n_pres, hist_c):
         """Reads with more than one present leaf that pass the closest

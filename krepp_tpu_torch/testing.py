@@ -198,3 +198,29 @@ def tiles_inputs(rng, N, P, C0, W, S, th, flavor="embed", dark=False,
         d[..., 1 + c] = encs[c]
         d[..., 1 + C0 + c] = rng.integers(0, nse, (N, P)).astype(np.uint32)
     return res, light, d, mask_tab
+
+
+def brent_inputs(rng, shape, th, P=122, keep=0.3):
+    """Lanes of brent_llh shaped like stage 2's, for comparing the kernel
+    with its plain version: (A, Bx, uc, rho f64 and a bool mask, each of
+    `shape`). A lane's read has P positions; a random number of them match
+    in classes 0..th (fewer in the higher classes), the rest are unmatched
+    (uc). Runs of lanes have no match (A = 0), no unmatched position
+    (uc = 0), rho = 1, and A = uc = 0; a `keep` share is selected."""
+    n = int(np.prod(shape))
+    pvals = 0.5 ** np.arange(th + 1)
+    hist = rng.multinomial(rng.integers(0, P + 1, n), pvals / pvals.sum())
+    hist = hist.astype(np.float64)
+    uc = P - hist.sum(-1)
+    rho = rng.uniform(0.05, 1.0, n)
+    q = n // 8
+    hist[:q] = 0.0
+    uc[:q] = P
+    uc[q: 2 * q] = 0.0
+    rho[2 * q: 3 * q] = 1.0
+    hist[3 * q: 3 * q + 4] = 0.0
+    uc[3 * q: 3 * q + 4] = 0.0
+    A = hist.sum(-1)
+    Bx = (hist * np.arange(th + 1)).sum(-1)
+    mask = rng.random(n) < keep
+    return tuple(a.reshape(shape) for a in (A, Bx, uc, rho, mask))

@@ -25,6 +25,7 @@ from krepp_tpu_torch.tree.newick import Tree
 
 import worldgen
 from test_e2e_dist import write_world
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")

@@ -24,6 +24,7 @@ from krepp_tpu_torch.index import artifact
 
 import worldgen
 from test_e2e_dist import write_world
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 from krepp_tpu.core import codec as jcodec
 from krepp_tpu.params import LSHParams
 from krepp_tpu_torch.core import codec
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

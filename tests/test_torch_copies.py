@@ -31,6 +31,7 @@ from krepp_tpu_torch.core import (hll, native_colorize, native_sort, sdust,
 from krepp_tpu_torch.index import colors
 from krepp_tpu_torch.io import native
 from krepp_tpu_torch.tree import flat, newick
+from refcsrc import private_reference_csrc  # noqa: F401
 
 D_MAX = np.finfo(np.float64).max
 

@@ -25,6 +25,7 @@ from krepp_tpu_torch.index.index import DeviceIndex
 from krepp_tpu_torch.query.dist import DistConfig, run_dist
 
 import worldgen
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

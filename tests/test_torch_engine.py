@@ -18,6 +18,7 @@ from krepp_tpu.index.index import DeviceIndex as JDeviceIndex
 from krepp_tpu.query import engine as jengine
 from krepp_tpu_torch.index.index import DeviceIndex
 from krepp_tpu_torch.query import engine
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

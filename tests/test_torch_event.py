@@ -38,6 +38,7 @@ from test_torch_engine import _assert_tuple_equal
 from test_torch_index import _assert_device_index_equal
 
 import worldgen
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -16,6 +16,7 @@ from krepp_tpu.index.index import DeviceIndex as JDeviceIndex
 from krepp_tpu_torch import testing
 from krepp_tpu_torch.index import artifact
 from krepp_tpu_torch.index.index import DeviceIndex
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -15,6 +15,7 @@ from krepp_tpu_torch import cli
 from krepp_tpu_torch.index import artifact
 from krepp_tpu_torch.inspect import display_info
 from krepp_tpu_torch.testing import build_world_index
+from refcsrc import private_reference_csrc  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -11,6 +11,7 @@ import pytest
 from krepp_tpu.index import build as jbuild
 from krepp_tpu.params import IndexParams, LSHParams
 from krepp_tpu_torch.core import native_extract
+from refcsrc import private_reference_csrc  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -9,6 +9,7 @@ import numpy as np
 
 from krepp_tpu.io import native_report as jnative_report
 from krepp_tpu_torch.io import native_report
+from refcsrc import private_reference_csrc  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from krepp_tpu_torch.query import engine, place
 from krepp_tpu_torch.testing import write_fastq
 
 from test_torch_engine import _assert_tuple_equal
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

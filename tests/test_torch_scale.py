@@ -27,6 +27,7 @@ from krepp_tpu_torch import cli, testing
 from krepp_tpu_torch.index.artifact import save_native
 from krepp_tpu_torch.index.index import DeviceIndex
 from krepp_tpu_torch.query import engine
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

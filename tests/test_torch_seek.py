@@ -28,6 +28,7 @@ from krepp_tpu_torch.query.seek import run_seek
 import worldgen
 
 from test_torch_engine import _assert_tuple_equal
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

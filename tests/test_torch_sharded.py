@@ -26,6 +26,7 @@ from krepp_tpu_torch.query import engine
 
 from test_torch_engine import _assert_tuple_equal
 from test_torch_event import _assert_leaf_equal
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -26,6 +26,7 @@ from krepp_tpu_torch import params
 from krepp_tpu_torch.core import (codec, masked_extract, minimizer,
                                   winnow_device)
 from krepp_tpu_torch.index import build
+from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 
