@@ -17,9 +17,9 @@ the loop still stops at exactly max_iter; brent_on_mask compacts to the
 exact kept lane set (one sync for its size). `brent_llh.launches` counts
 kernel launches; with `brent_llh.keep_next = True` the next launch leaves
 copies of its arguments in `brent_llh.kept`, and with
-`brent_find_minima.lane_steps = 0` the plain form adds up the lane-steps
-it takes (a sync an iteration): measurement hooks that nothing in the
-package sets.
+`brent_find_minima.lane_steps = []` each call of the plain form appends
+the Brent steps each of its lanes took (an int64 tensor of its batch
+shape): measurement hooks that nothing in the package sets.
 """
 
 from __future__ import annotations
@@ -185,6 +185,9 @@ def brent_find_minima(f, batch_shape, device, lo: float = _BRENT_LO,
     delta = torch.zeros(batch_shape, dtype=F, device=device)
     delta2 = delta.clone()
     done = torch.zeros(batch_shape, dtype=torch.bool, device=device)
+    steps = None
+    if brent_find_minima.lane_steps is not None:
+        steps = torch.zeros(batch_shape, dtype=torch.int64, device=device)
 
     for it in range(max_iter):
         if it % BRENT_SYNC_EVERY == 0 and bool(done.all()):
@@ -242,8 +245,8 @@ def brent_find_minima(f, batch_shape, device, lo: float = _BRENT_LO,
         v2 = where(cond_v, u, v2)
         fv2 = where(cond_v, fu, fv2)
 
-        if brent_find_minima.lane_steps is not None:
-            brent_find_minima.lane_steps += int(act.sum())
+        if steps is not None:
+            steps += act
         done = done | newly_done
         mn = where(act, mn2, mn)
         mx = where(act, mx2, mx)
@@ -255,6 +258,8 @@ def brent_find_minima(f, batch_shape, device, lo: float = _BRENT_LO,
         fv = where(act, fv2, fv)
         delta = where(act, new_delta, delta)
         delta2 = where(act, new_delta2, delta2)
+    if steps is not None:
+        brent_find_minima.lane_steps.append(steps)
     return x, fx
 
 
@@ -319,12 +324,11 @@ def brent_llh_ref(A: torch.Tensor, Bx: torch.Tensor, uc: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _binom_on(k: int, h: int, th: int, device: torch.device):
-    """binom_k[0..th] then binom_hnk[0..th], f64, on `device` (uploaded
-    once: the copy from host memory syncs)."""
+def _binom_host(k: int, h: int, th: int) -> np.ndarray:
+    """binom_k[0..th] then binom_hnk[0..th], f64 in host memory: the
+    launcher passes them to the kernel by value, in its parameters."""
     binom_k, binom_hnk = binom_tables(k, h, th)
-    tab = np.concatenate([binom_k[: th + 1], binom_hnk])
-    return torch.from_numpy(tab).to(device)
+    return np.concatenate([binom_k[: th + 1], binom_hnk])
 
 
 def _brent_launcher():
@@ -365,13 +369,13 @@ def brent_llh(A: torch.Tensor, Bx: torch.Tensor, uc: torch.Tensor,
         brent_llh.keep_next = False
         brent_llh.kept = (A.clone(), Bx.clone(), uc.clone(), rho.clone(),
                           None if mask is None else mask.clone(), k, h, th)
-    tab = _binom_on(k, h, th, uc.device)
+    tab = _binom_host(k, h, th)
     fn = _brent_launcher()
     with torch.cuda.device(uc.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(A.data_ptr(), Bx.data_ptr(), uc.data_ptr(), rho.data_ptr(),
                 0 if mask is None else mask.data_ptr(), N, k, th,
-                tab.data_ptr(), d.data_ptr(), v.data_ptr(), stream)
+                tab.ctypes.data, d.data_ptr(), v.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"brent_llh launch failed: cudaError {rc}")
     brent_llh.launches += 1

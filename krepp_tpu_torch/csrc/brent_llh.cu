@@ -22,25 +22,42 @@
 // plain form on the card.
 //
 // Inputs: A, Bx, uc, rho f64 [N]; mask bool [N] or null (every lane);
-// binom f64 [2 (th + 1)]: binom_k[0..th] then binom_hnk[0..th].
-// Outputs: d, v f64 [N].
+// binom f64 [2 (th + 1)] in host memory: binom_k[0..th] then
+// binom_hnk[0..th]. Outputs: d, v f64 [N].
 //
 // Bound: a lane reads 33 bytes and writes 16, and a selected lane takes
 // ~12 steps (up to 200) of ~55 f64 operations plus a likelihood of
 // 24 + 5 (th + 1) operations with two logs: on the main path's inputs
 // (a third of the lanes selected or fewer) the least time is the bytes'.
 // What sets the time is latency: each lane is one chain of dependent f64
-// operations (two logs and a division a step), so a launch lasts as long
-// as its slowest warps. Design: one thread per lane, its whole state
-// (bracket, three points, their values, two step lengths) in registers;
-// no host sync and no shared state between lanes. A block first compacts
-// its selected lanes (warp ballots and a prefix over the warps in shared
-// memory) so that its warps are full of selected lanes and only the
-// block's last warp is partial: a sparse mask (place's dense [B, Q]
-// stage 3) costs the warps it fills, not its length. Lanes of a warp that
-// stop at different steps diverge: the warp runs until its slowest lane
-// stops and the others idle; lanes are not regrouped by step count (a
-// later change may sort them if the divergence shows in the time).
+// operations (two logs and a division a step, software routines on the
+// card, and the likelihood's sums over 0..th), so a launch lasts at least
+// as long as its slowest lane. chip_smoke.py measures that floor (one
+// launch of the slowest lane alone); on the batches the main path gives
+// the kernel it is most of a call's time (PERF.md, section 6).
+// Design: one thread per lane, its whole state (bracket, three points,
+// their values, two step lengths) in registers; no host sync and no shared
+// state between lanes. A block first compacts its selected lanes (warp
+// ballots and a prefix over the warps in shared memory) so that its warps
+// are full of selected lanes and only the block's last warp is partial: a
+// sparse mask (place's dense [B, Q] stage 3) costs the warps it fills, not
+// its length. The chain is kept short: the likelihood is compiled for
+// each th of 0..7, so its sums over the classes are unrolled (a generic
+// loop serves th of 8 and above, and is no faster than a loop over a
+// table in device memory: PERF.md, section 6); the binomials travel in the kernel's parameters, read from
+// the constant bank as operands (no table in device or shared memory, no
+// barrier); the powers of 1 - d unroll over the six bits k can have; a
+// golden-section step skips the parabolic step's division, whose result
+// it would not use. Lanes of a warp that stop at different steps diverge:
+// the warp runs until its slowest lane stops and the others idle. A lane
+// queue that gives a thread the next lane as soon as its lane stops (a
+// persistent grid of the resident blocks, one likelihood a thread a trip,
+// rings of lane ids in shared memory, a block's or a warp's) was built and
+// timed against this design in one call on the same card: bit-equal
+// (lanes are independent, so the order in which they are taken changes no
+// bit), and slower on every shape: the main path's calls select fewer
+// lanes than the card holds threads, so a queue has nothing to refill,
+// and its vote and branches on every trip lengthen each lane's chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +75,12 @@ constexpr double kTolQ = kTol * 0.25;    // exact: a power of two
 // boost: `static const T golden = 0.3819660f;` (a float literal)
 constexpr double kGolden = (double)0.3819660f;
 
+// binom_k[0..th] and binom_hnk[0..th], passed by value
+struct Binom {
+  double k[kMaxTh + 1];
+  double h[kMaxTh + 1];
+};
+
 __device__ __forceinline__ double add(double a, double b) {
   return __dadd_rn(a, b);
 }
@@ -69,14 +92,19 @@ __device__ __forceinline__ double mul(double a, double b) {
 }
 
 // make_llh_fast's likelihood in its op order (_ipow's multiplication
-// order over the bits of k included)
-__device__ double llh(double d, double A, double Bx, double uc, double rho,
-                      int k, int th, const double* bk, const double* bh) {
+// order over the bits of k included); TH = th, or -1 for th at run time
+template <int TH>
+__device__ __forceinline__ double llh(double d, double A, double Bx,
+                                      double uc, double rho, int k, int th,
+                                      const Binom& bn) {
   const double omd = sub(1.0, d);
   double acc = 1.0;
   bool have = false;
   double base = omd;
-  for (int n = k; n; n >>= 1) {
+#pragma unroll
+  for (int bit = 0; bit < 6; ++bit) {   // k <= 32: six bits
+    const int n = k >> bit;
+    if (n == 0) break;
     if (n & 1) {
       acc = have ? mul(acc, base) : base;
       have = true;
@@ -89,9 +117,10 @@ __device__ double llh(double d, double A, double Bx, double uc, double rho,
   const double dratio = __ddiv_rn(d, omd);
   double lv = 0.0;
   double ck = 0.0;
-  for (int x = 0; x <= th; ++x) {
-    lv = add(lv, mul(bh[x], powdc));
-    ck = add(ck, mul(bk[x], powdc));
+#pragma unroll
+  for (int x = 0; x <= (TH < 0 ? th : TH); ++x) {
+    lv = add(lv, mul(bn.h[x], powdc));
+    ck = add(ck, mul(bn.k[x], powdc));
     powdc = mul(powdc, dratio);
   }
   lv = add(lv, sub(1.0, ck));
@@ -99,18 +128,17 @@ __device__ double llh(double d, double A, double Bx, double uc, double rho,
   return sub(s, mul(log(sub(add(mul(rho, lv), 1.0), rho)), uc));
 }
 
+template <int TH>
 __global__ void __launch_bounds__(kThreads)
 brent_llh_kernel(const double* __restrict__ A, const double* __restrict__ Bx,
                  const double* __restrict__ uc,
                  const double* __restrict__ rho,
                  const uint8_t* __restrict__ mask, long long N, int k, int th,
-                 const double* __restrict__ binom, double* __restrict__ dout,
+                 const __grid_constant__ Binom bn, double* __restrict__ dout,
                  double* __restrict__ vout) {
-  __shared__ double sbin[2 * (kMaxTh + 1)];
   __shared__ int warp_sel[kWarps];
   __shared__ int lane_of[kThreads];
   const int tid = threadIdx.x;
-  for (int i = tid; i < 2 * (th + 1); i += kThreads) sbin[i] = binom[i];
 
   // compact the block's selected lanes, in order, to its first threads
   const long long lane0 = (long long)blockIdx.x * kThreads;
@@ -138,12 +166,10 @@ brent_llh_kernel(const double* __restrict__ A, const double* __restrict__ Bx,
 
   const long long lane = lane0 + lane_of[tid];
   const double a = A[lane], b = Bx[lane], u_c = uc[lane], r = rho[lane];
-  const double* bk = sbin;
-  const double* bh = sbin + th + 1;
 
   double mn = kLo, mx = kHi;
   double x = kHi, w = kHi, v = kHi;
-  double fx = llh(x, a, b, u_c, r, k, th, bk, bh);
+  double fx = llh<TH>(x, a, b, u_c, r, k, th, bn);
   double fw = fx, fv = fx;
   double delta = 0.0, delta2 = 0.0;
   for (int it = 0; it < kMaxIter; ++it) {
@@ -165,19 +191,21 @@ brent_llh_kernel(const double* __restrict__ A, const double* __restrict__ Bx,
         (p <= mul(q, sub(mn, x))) || (p >= mul(q, sub(mx, x)));
     const double g_delta2 = x >= mid ? sub(mn, x) : sub(mx, x);
     const double g_delta = mul(kGolden, g_delta2);
-    double p_delta = __ddiv_rn(p, q == 0.0 ? 1.0 : q);
-    const double u_try = add(x, p_delta);
-    if ((sub(u_try, mn) < fract2) || (sub(mx, u_try) < fract2))
-      p_delta = sub(mid, x) < 0.0 ? -fabs(fract1) : fabs(fract1);
     const double new_delta2 =
         golden_step ? g_delta2 : (use_para ? delta : delta2);
-    const double new_delta = golden_step ? g_delta : p_delta;
+    double new_delta = g_delta;
+    if (!golden_step) {
+      new_delta = __ddiv_rn(p, q == 0.0 ? 1.0 : q);
+      const double u_try = add(x, new_delta);
+      if ((sub(u_try, mn) < fract2) || (sub(mx, u_try) < fract2))
+        new_delta = sub(mid, x) < 0.0 ? -fabs(fract1) : fabs(fract1);
+    }
 
     const double u = fabs(new_delta) >= fract1
                          ? add(x, new_delta)
                          : (new_delta > 0.0 ? add(x, fabs(fract1))
                                             : sub(x, fabs(fract1)));
-    const double fu = llh(u, a, b, u_c, r, k, th, bk, bh);
+    const double fu = llh<TH>(u, a, b, u_c, r, k, th, bn);
 
     // bracket update and point shuffle; fu <= fx is false for NaN
     if (fu <= fx) {
@@ -201,6 +229,17 @@ brent_llh_kernel(const double* __restrict__ A, const double* __restrict__ Bx,
   vout[lane] = fx;
 }
 
+template <int TH>
+int launch(unsigned blocks, cudaStream_t stream, const void* A,
+           const void* Bx, const void* uc, const void* rho, const void* mask,
+           long long N, int k, int th, const Binom& bn, void* d, void* v) {
+  brent_llh_kernel<TH><<<blocks, kThreads, 0, stream>>>(
+      (const double*)A, (const double*)Bx, (const double*)uc,
+      (const double*)rho, (const uint8_t*)mask, N, k, th, bn, (double*)d,
+      (double*)v);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
@@ -213,9 +252,23 @@ extern "C" int krepp_brent_llh(const void* A, const void* Bx, const void* uc,
     return (int)cudaErrorInvalidValue;
   const long long blocks = (N + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  brent_llh_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const double*)A, (const double*)Bx, (const double*)uc,
-      (const double*)rho, (const uint8_t*)mask, N, k, th,
-      (const double*)binom, (double*)d, (double*)v);
-  return (int)cudaGetLastError();
+  Binom bn = {};
+  for (int x = 0; x <= th; ++x) {
+    bn.k[x] = ((const double*)binom)[x];
+    bn.h[x] = ((const double*)binom)[th + 1 + x];
+  }
+  const unsigned g = (unsigned)blocks;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (th) {
+    case 0: return launch<0>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    case 1: return launch<1>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    case 2: return launch<2>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    case 3: return launch<3>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    case 4: return launch<4>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    case 5: return launch<5>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    case 6: return launch<6>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    case 7: return launch<7>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+    default:
+      return launch<-1>(g, st, A, Bx, uc, rho, mask, N, k, th, bn, d, v);
+  }
 }
