@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of krepp_tpu_torch (the PyTorch/CUDA port) on one CUDA card.
 
-    python3 chip_smoke.py        # needs one card
+    python3 chip_smoke.py                # needs one card
+    python3 chip_smoke.py --multi-card   # phase 30 alone, on N >= 2 cards
 
 Drives the port's paths, `index`, `sketch`, `dist`, `place` and `seek`
 through its CLI on generated worlds and the probe microbenchmark, and
@@ -151,21 +152,32 @@ checks them:
      dist (probe_hist_packed on the shard), wide dist and place
      (probe_hist_tiles), many dist and place (event lanes across shards)
      and many dist with KREPP_SHARD_DENSE=1 (the dense event probe), each
-     through the CLI with `--mesh 1x1` and byte for byte the one-device
-     report of the same reads, run just before it; the first launch of
-     each epilogue kernel on the shard bit-equal to its plain version
-     (phase 3b's hook); warm reads/s of 1x1 beside one device on wide and
-     many dist, passes in turn, and each run's peak device memory;
+     through the CLI with `--mesh 1x1` (the engine that runs its cells at
+     once, a host thread a cell) and byte for byte the one-device report
+     of the same reads, run just before it; the first launch of each
+     epilogue kernel on the shard (from the cell's thread) bit-equal to
+     its plain version (phase 3b's hook); warm reads/s of 1x1, and of 1x1
+     with its cells in turn (concurrent=False), beside one device on wide
+     and many dist, passes in turn, and each run's peak device memory;
  29. two processes on the one card over gloo (KREPP_NUM_PROCESSES=2,
      KREPP_DIST_BACKEND=gloo), each under the same import block: wide and
      many dist and wide place --tabular with `--mesh 1x2 -o PATH`, so the
      shard merge crosses processes; PATH.rank0 and PATH.rank1
      concatenated (the header once) are the one-device report byte for
      byte; seconds, peak device memory and launches of each rank;
- 30. on a machine with N >= 2 cards: wide and many dist with `--mesh 1xN`
-     and `2x(N/2)` in process (byte for byte, warm reads/s of 1xN beside
-     1x1) and wide dist in two NCCL processes, a card each; on one card
-     a line says it was skipped;
+ 30. on a machine with N >= 2 cards: the host's launch path alone (N
+     jobs of 900 one-element adds, in turn on one thread or at once on a
+     thread each: on a card each, all on card 0, on host tensors; us an
+     op); wide and many dist with `--mesh 1xN`,
+     `Nx1` and `2x(N/2)` in process through the CLI, byte for byte; then
+     for each mesh, on one loaded index, 1x1, the mesh with its cells at
+     once and the mesh with its cells in turn: each report byte for byte,
+     warm reads/s passes in turn (each beside 1x1, at once beside in
+     turn), and one profiled pass of each mesh engine: each card's device
+     ms and the share of the wall in which two or more cards were busy at
+     once; wide dist in two NCCL processes, a card each; on one card a
+     line says it was skipped (`--multi-card` runs this phase alone,
+     after building the two worlds and their one-device reports);
  31. CSR mode (DIRECT_MEM_CAP set to 0 in the port's query engine for the
      phase): wide dist and place on the first 16,384 reads, one device and
      --mesh 1x1, each in mode csr with no epilogue kernel, byte for byte
@@ -235,6 +247,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 BASE = dict(seed=7, nleaves=24, glen=500_000, rate=0.05, k=27, h=11, w=35,
             m=4)                              # bench.py CONFIGS["base"]
@@ -314,6 +327,9 @@ REPLACES = {  # the Pallas TPU kernel bodies each CUDA kernel replaces
     "brent_llh": "krepp_tpu/core/llh.py:192",
 }
 MESH_READS = 16384            # reads a world in the sharded phases 28-30
+# one-element adds a thread launches in phase 30's reading of the launch path
+# alone (~900 launches a cell a 16,384-read dist step)
+LAUNCH_OPS = 900
 # reads of a world's Brent A/B and of the profiled place passes of phases
 # 15 and 17, cut from 65,536: the time to read a profile grows with its
 # ~10^5 launches
@@ -2061,46 +2077,63 @@ def build_path_phases(root: str, card: str, idx: str, base_files,
                                   f"{WINDOW_KMERS}")
 
 
+def sync_cards() -> None:
+    """Wait for every card of the machine."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def rates_in_turn(n, what: str, fq: str, engines: dict, card: str,
-                  cmd: str = "dist"):
+                  cmd: str = "dist") -> dict:
     """Warm dist or place reads/s of each engine of `engines` ({label:
     engine}) on the same reads: a warm-up pass each, then 3 rounds of one
     pass each in turn, so that the host's drift falls on all alike. Prints
-    the medians and the ratio of the second to the first."""
-    import torch
-
+    the medians and the ratio of each to the first; returns the medians."""
     rates = {label: [] for label in engines}
     for rep in range(4):
         for label, eng in engines.items():
-            torch.cuda.synchronize()
+            sync_cards()
             t0 = time.perf_counter()
             nr = run_query(eng, cmd, fq)
-            torch.cuda.synchronize()
+            sync_cards()
             if rep:
                 rates[label].append(nr / (time.perf_counter() - t0))
     med = {label: statistics.median(r) for label, r in rates.items()}
-    a, b = engines
+    a, *others = engines
     phase(n, f"{what}, warm, passes in turn: "
           + ", ".join(f"{label} {med[label]:.1f} reads/s (spread "
                       f"{max(r) / min(r):.3f}x)" for label, r in rates.items())
-          + f"; {b} / {a} {med[b] / med[a]:.3f}x on {card}")
+          + "; " + ", ".join(f"{b} / {a} {med[b] / med[a]:.3f}x"
+                             for b in others) + f" on {card}")
+    return med
 
 
-def paired_rates(n: int, world: str, idx: str, fq: str, card: str, meshes):
-    """Warm dist reads/s of one engine per entry of `meshes` (None: one
-    device, else DATAxSHARD over the first cards) on the same reads, passes
-    in turn (rates_in_turn)."""
-    from krepp_tpu_torch.index.artifact import load_index
+def mesh_engine(di, spec: Optional[str]):
+    """None: QueryEngine on cuda; "DxS": ShardedQueryEngine over the first
+    D * S cards, its cells at once; "DxS in turn": the same engine running
+    its cells one after the other (concurrent=False)."""
     from krepp_tpu_torch.parallel.mesh import (ShardedQueryEngine,
                                                make_query_mesh, parse_mesh)
     from krepp_tpu_torch.query.engine import QueryEngine
 
+    if spec is None:
+        return QueryEngine(di, 4, device="cuda")
+    mesh, *in_turn = spec.split(" ", 1)
+    return ShardedQueryEngine(di, make_query_mesh(*parse_mesh(mesh),
+                                                  device="cuda"), 4,
+                              concurrent=not in_turn)
+
+
+def paired_rates(n: int, world: str, idx: str, fq: str, card: str, meshes):
+    """Warm dist reads/s of one engine per entry of `meshes` (mesh_engine's
+    specs) on the same reads, passes in turn (rates_in_turn)."""
+    from krepp_tpu_torch.index.artifact import load_index
+
     di = load_index(idx)
     engines = {"one device" if m is None else f"--mesh {m}":
-               QueryEngine(di, 4, device="cuda") if m is None else
-               ShardedQueryEngine(di, make_query_mesh(*parse_mesh(m),
-                                                      device="cuda"), 4)
-               for m in meshes}
+               mesh_engine(di, m) for m in meshes}
     rates_in_turn(n, f"{world} dist, {MESH_READS} reads", fq, engines,
                   card)
 
@@ -2187,7 +2220,8 @@ def mesh_in_process(n: int, root: str, worlds: dict, card: str, total: dict,
         single(world, cmd, flags, launched, mode)
 
     for world in ("wide", "many"):
-        paired_rates(n, world, *worlds[world], card, (None, "1x1"))
+        paired_rates(n, world, *worlds[world], card,
+                     (None, "1x1", "1x1 in turn"))
     return singles
 
 
@@ -2308,13 +2342,134 @@ def ranks_on_card(n: int, root: str, worlds: dict, singles: dict,
                  f"re-runs {[r['stats']['escalations'] for r in results]}")
 
 
+def overlap_ms(spans: dict):
+    """{card: [(start ns, end ns) of its device entries]} -> ({card: device
+    ms, its entries summed}, {card: busy ms, its entries merged into
+    intervals}, ms in which two or more cards were busy at once)."""
+    summed, busy, edges = {}, {}, []
+    for dev, sp in sorted(spans.items()):
+        summed[dev] = sum(b - a for a, b in sp) / 1e6
+        merged = []
+        for a, b in sorted(sp):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        busy[dev] = sum(b - a for a, b in merged) / 1e6
+        edges += [(a, 1) for a, _ in merged] + [(b, -1) for _, b in merged]
+    both = live = 0
+    last = None
+    for t, step in sorted(edges):        # at a tie, ends before starts
+        if live >= 2:
+            both += t - last
+        live += step
+        last = t
+    return summed, busy, both / 1e6
+
+
+def card_overlap(one_pass):
+    """One pass under torch.profiler (device activity), read from its raw
+    events: (wall ms with the profiler on,) + overlap_ms of its device
+    entries by card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sync_cards()
+        t0 = time.perf_counter()
+        one_pass()
+        sync_cards()
+        wall = time.perf_counter() - t0
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spans.setdefault(e.device_index(), []).append(
+                (e.start_ns(), e.end_ns()))
+    check(spans, "the profile holds no device entry")
+    return (wall * 1e3,) + overlap_ms(spans)
+
+
+def launch_path(n: int, card: str):
+    """Phase 30: the host's launch path without the engine. A thread a
+    job, each job LAUNCH_OPS one-element adds on its own tensor: the jobs
+    in turn on one thread or at once on a thread each (the engine's two
+    orders), on a card each, all on card 0, and on host tensors (torch
+    releases the interpreter lock in every op there too, but no CUDA call
+    is made); 5 rounds in turn, median microseconds an op of each."""
+    from concurrent.futures import ThreadPoolExecutor, wait
+
+    import torch
+
+    have = torch.cuda.device_count()
+
+    def job(x):
+        with (torch.cuda.device(x.device) if x.is_cuda
+              else contextlib.nullcontext()):
+            for _ in range(LAUNCH_OPS):
+                x.add_(1)
+            if x.is_cuda:
+                torch.cuda.current_stream().synchronize()
+
+    sets = {"a card each": [torch.zeros(1, device=f"cuda:{i}")
+                            for i in range(have)],
+            "all on card 0": [torch.zeros(1, device="cuda:0")
+                              for _ in range(have)],
+            "host tensors": [torch.zeros(1) for _ in range(have)]}
+    us = {}
+    with ThreadPoolExecutor(have) as pool:
+        for rnd in range(6):
+            for name, xs in sets.items():
+                for order in ("in turn", "at once"):
+                    sync_cards()
+                    t0 = time.perf_counter()
+                    if order == "in turn":
+                        for x in xs:
+                            job(x)
+                    else:
+                        wait([pool.submit(job, x) for x in xs])
+                    dt = time.perf_counter() - t0
+                    if rnd:
+                        us.setdefault((name, order), []).append(
+                            dt * 1e6 / (LAUNCH_OPS * have))
+    for name in sets:
+        a, b = (statistics.median(us[name, o]) for o in ("in turn",
+                                                          "at once"))
+        phase(n, f"launch path, {have} jobs of {LAUNCH_OPS} one-element "
+                 f"adds, {name}: {a:.2f} us an op in turn, {b:.2f} at once "
+                 f"(a thread a job), at once / in turn {b / a:.3f}x on "
+                 f"{card}")
+
+
+def report_matches(label: str, eng, cmd: str, fq: str, want: str,
+                   root: str) -> int:
+    """run_query of `eng` into a file: the CLI's one-device report `want`
+    byte for byte, the invocation aside. Returns its lines."""
+    out = os.path.join(root, re.sub(r"\W+", "_", label))
+    run_query(eng, cmd, fq, out)
+    with open(out) as f:
+        got = f.read().splitlines(keepends=True)
+    with open(want) as f:
+        ref = f.read().splitlines(keepends=True)
+    check(got[0].split("invocation :")[0] == ref[0].split("invocation :")[0]
+          and got[1:] == ref[1:],
+          f"{label}: the report differs from the one-device report")
+    return len(got)
+
+
 def multi_card(n: int, root: str, worlds: dict, singles: dict, card: str,
                total: dict):
-    """Phase 30, on a machine with N >= 2 cards: wide and many dist with
-    --mesh 1xN and 2x(N/2) in process, byte for byte the one-device
-    report, warm reads/s of 1xN beside 1x1 (passes in turn); wide dist in
-    two NCCL processes, a card each."""
+    """Phase 30, on a machine with N >= 2 cards: the launch path alone
+    (launch_path); wide and many dist with
+    --mesh 1xN, Nx1 and 2x(N/2) through the CLI in process, byte for byte
+    the one-device report; then for each mesh three engines on one loaded
+    index, 1x1, the mesh's cells at once and its cells in turn, each
+    report byte for byte, warm reads/s passes in turn (each beside 1x1, at
+    once beside in turn), and one profiled pass of each mesh engine: each
+    card's device ms and the share of the wall in which two or more cards
+    were busy at once; wide dist in two NCCL processes, a card each."""
     import torch
+
+    from krepp_tpu_torch.index.artifact import load_index
 
     have = torch.cuda.device_count()
     if have < 2:
@@ -2322,16 +2477,49 @@ def multi_card(n: int, root: str, worlds: dict, singles: dict, card: str,
                  f"several cards in one process, and NCCL ranks (a card "
                  f"each), need two or more")
         return
+    launch_path(n, card)
+    meshes = list(dict.fromkeys((f"1x{have}", f"{have}x1",
+                                 f"2x{have // 2}")))
     for world, cmd, flags, launched, mode in RANK_RUNS[:2]:
         want, _ = singles[(world, cmd, *flags)]
         idx, fq = worlds[world]
-        for mesh in (f"1x{have}", f"2x{have // 2}"):
+        for mesh in meshes:
             out = f"{want}_mesh{mesh}"
             label = f"{world} {cmd} --mesh {mesh}"
             card_run(n, label, [cmd, "-q", fq, "-i", idx, "-o", out,
                                 "--mesh", mesh], launched, total, mode)
             same_file(n, label, out, want)
-        paired_rates(n, world, idx, fq, card, ("1x1", f"1x{have}"))
+        di = load_index(idx)
+        one = mesh_engine(di, "1x1")
+        for mesh in meshes:
+            engines = {"--mesh 1x1": one}
+            for spec in (mesh, f"{mesh} in turn"):
+                engines[f"--mesh {spec}"] = mesh_engine(di, spec)
+            for label, eng in engines.items():
+                lines = report_matches(f"{world} {cmd} {label}", eng, cmd,
+                                       fq, want, root)
+            phase(n, f"{world} {cmd}: {', '.join(engines)}: the one-device "
+                     f"report byte for byte ({lines} lines)")
+            med = rates_in_turn(n, f"{world} {cmd}, {MESH_READS} reads",
+                                fq, engines, card, cmd)
+            at_once, in_turn = list(engines)[1:]
+            phase(n, f"{world} {cmd} --mesh {mesh}: cells at once / in "
+                     f"turn {med[at_once] / med[in_turn]:.3f}x on {card}")
+            for label in (at_once, in_turn):
+                eng = engines[label]
+                wall, summed, busy, both = card_overlap(
+                    lambda: run_query(eng, cmd, fq))
+                phase(n, f"{world} {cmd} {label}, profiled pass: "
+                         f"{wall:.1f} ms wall; device ms a card "
+                         f"{[round(summed[d], 3) for d in sorted(summed)]}, "
+                         f"busy ms a card (entries merged) "
+                         f"{[round(busy[d], 3) for d in sorted(busy)]}; "
+                         f"two or more cards busy at once {both:.3f} ms, "
+                         f"{100 * both / wall:.2f}% of the wall, on {card}")
+            del engines, eng
+            torch.cuda.empty_cache()
+        del one, di
+        torch.cuda.empty_cache()
     ranks_on_card(n, root, worlds, singles, total, "nccl", RANK_RUNS[:1])
 
 
@@ -2851,7 +3039,39 @@ def huge_world(n: int, root: str, card: str, total: dict):
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+def multi_card_only(card: str) -> None:
+    """`chip_smoke.py --multi-card`: phase 30 alone, with what it reads
+    from the phases before it (the wide and many worlds at full size,
+    their first 16,384 reads and the one-device dist reports of them)."""
+    launches = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="krepp_smoke_") as root:
+        worlds, singles = {}, {}
+        for world, cfg in (("wide", WIDE), ("many", MANY)):
+            with timed(30, f"{world} world"):
+                idx, gen, nk, dt = make_world(cfg, root, world)
+                fq, _ = write_reads(gen, cfg["seed"] + 1, WIDE_READS, 150,
+                                    WIDE_CPU_READS, root, world)
+                del gen
+                worlds[world] = (idx, head_fastq(
+                    fq, os.path.join(root, f"{world}_mesh.fq"), MESH_READS))
+                phase(30, f"{world} world: {nk} k-mers, built in {dt:.1f} s")
+        for world, cmd, flags, launched, mode in RANK_RUNS[:2]:
+            idx, fq = worlds[world]
+            out = os.path.join(root, f"one_{world}_{cmd}")
+            singles[(world, cmd, *flags)] = (out, card_run(
+                30, f"{world} {cmd} on one device",
+                [cmd, "-q", fq, "-i", idx, "-o", out, *flags], launched,
+                launches, mode))
+        with timed(30, "meshes over several cards"):
+            multi_card(30, root, worlds, singles, card, launches)
+    phase(30, f"launches: {launches}")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--multi-card"]):
+        print("usage: chip_smoke.py [--multi-card]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -2892,6 +3112,16 @@ def main() -> int:
         phase(2, f"{name}.cu: " + "; ".join(ptxas))
     phase(2, f"nvcc build of {len(KERNELS)} sources in parallel: "
              f"{time.time() - t0:.2f} s")
+    if argv:
+        check(torch.cuda.device_count() >= 2,
+              "--multi-card needs two or more cards")
+        multi_card_only(card)
+        check(not reference_modules(),
+              f"the run imported {reference_modules()}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     with timed(3, "kernels vs plain"):
         kstats = kernels_vs_plain()

@@ -19,7 +19,8 @@ kernel launches; with `brent_llh.keep_next = True` the next launch leaves
 copies of its arguments in `brent_llh.kept`, and with
 `brent_find_minima.lane_steps = []` each call of the plain form appends
 the Brent steps each of its lanes took (an int64 tensor of its batch
-shape): measurement hooks that nothing in the package sets.
+shape): measurement hooks that nothing in the package sets (the count and
+the keep hook exact under threads, through core/launches.py).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .launches import count_launch, take_keep
 
 F = torch.float64
 
@@ -365,8 +368,7 @@ def brent_llh(A: torch.Tensor, Bx: torch.Tensor, uc: torch.Tensor,
     N = uc.numel()
     if N == 0:
         return d, v
-    if brent_llh.keep_next:
-        brent_llh.keep_next = False
+    if take_keep(brent_llh):
         brent_llh.kept = (A.clone(), Bx.clone(), uc.clone(), rho.clone(),
                           None if mask is None else mask.clone(), k, h, th)
     tab = _binom_host(k, h, th)
@@ -378,7 +380,7 @@ def brent_llh(A: torch.Tensor, Bx: torch.Tensor, uc: torch.Tensor,
                 tab.ctypes.data, d.data_ptr(), v.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"brent_llh launch failed: cudaError {rc}")
-    brent_llh.launches += 1
+    count_launch(brent_llh)
     return d, v
 
 

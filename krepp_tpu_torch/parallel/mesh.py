@@ -13,33 +13,50 @@ row spaces (h >= 13) keep their nonempty-row ids per shard and route by a
 shard-local binary search.
 
 Where the reference runs one SPMD program under `shard_map`, the port runs
-the per-shard step on each of its devices from the host, then merges the
-partials through two collectives on the process's lead device:
+the per-shard step of every cell it owns at the same time, one host thread
+a cell under `torch.cuda.device(cell's card)`, so that a cell's host sync
+waits for its own card only. The threads take turns at the host
+(core/host_turn.py): a step launches its ops holding the engine's turn and
+gives it up while it waits for its card, so the cards run at once while
+one cell's ops are launched at a time (threads that launch ops together hand
+the interpreter lock over at every op, at many times the op's cost). Then
+the calling thread merges the partials, in cell order, through two
+collectives:
 
   * `_reduce` over a data row's shards: `sum` of the int32 histograms,
-    `min` of minall, `max` of the overflow flag, or the concatenation of
-    event lanes (then joined and run through stage 2 per data row, with
-    lane keys offset to the batch: the reference's event-lane pipeline);
+    `min` of minall, `max` of the overflow flag (on the process's lead
+    device), or the concatenation of event lanes (on the row's first
+    card, where a thread a row then joins them and runs stage 2, with lane
+    keys offset to the batch: the reference's event-lane pipeline, which
+    runs each row's stage 2 on that row's devices);
   * `_gather_rows` over data rows: the rows' probe outputs (or stage-2
-    lanes) concatenated into the whole batch's.
+    lanes) concatenated into the whole batch's on the lead device.
 
-Stage 2 and everything after it are the single-device engine's, on the
-whole batch. In one process both collectives are copies to the lead
-device and a stack or concatenation; parallel/multihost.py overrides them
-with torch.distributed. Results equal the single-device engine's: integers
-element for element, distances because stage 2 sees the same lanes in the
-same order.
+No collective is called from a worker thread, so every process of a group
+calls the same ones in the same order. Stage 2 and everything after it
+are otherwise the single-device engine's, on the whole batch. In one
+process both collectives are copies and a stack or concatenation;
+parallel/multihost.py overrides them with torch.distributed. Results equal
+the single-device engine's: integers element for element, distances
+because stage 2 sees the same lanes in the same order. `concurrent=False`
+runs the cells one after the other on the calling thread instead (the
+pair a measurement compares; nothing else selects it).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
-from typing import Dict, List, Optional
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.host_turn import host_turn
 from ..index.index import DeviceIndex
 from ..query import engine as qengine
 from ..query.bucket_scan import probe_strand, probe_strand_full
@@ -103,24 +120,43 @@ def make_query_mesh(n_data: int, n_shard: int, devices=None,
                       for g in range(n_data)])
 
 
+def _taking_turns(step):
+    """A cell step that launches its ops holding its engine's host turn."""
+    @functools.wraps(step)
+    def run(self, *args):
+        with self._host_turn():
+            return step(self, *args)
+    return run
+
+
 class ShardedQueryEngine(QueryEngine):
     """QueryEngine whose stage-1 probe runs per shard on a device mesh.
 
     Index rows are block-sharded over the mesh's shard axis (blocks
-    balanced by entry count), reads over its data rows; stage 2 runs on
-    the merged probe outputs of the whole batch on the lead device (this
-    process's first cell). Event mode keeps the lane form across shards
-    unless KREPP_SHARD_DENSE is set (then the dense event probe per
-    shard, whose [2B, S, X] histograms sum like the other modes')."""
+    balanced by entry count), reads over its data rows; each owned cell's
+    step runs on its own host thread (concurrent=True), or in turn on the
+    calling thread (concurrent=False). Stage 2 runs on the merged probe
+    outputs of the whole batch on the lead device (this process's first
+    cell), except in the event-lane form, where each data row's runs on
+    its first card. Event mode keeps the lane form across shards unless
+    KREPP_SHARD_DENSE is set (then the dense event probe per shard, whose
+    [2B, S, X] histograms sum like the other modes')."""
 
     def __init__(self, dindex: DeviceIndex, mesh: QueryMesh,
-                 hdist_th: int = 4):
+                 hdist_th: int = 4, concurrent: bool = True):
         self.mesh = mesh
         self.n_shard = mesh.n_shard
         self.n_data = mesh.n_data
+        self.concurrent = concurrent
         own = mesh.own()
         if not own:
             raise ValueError("this process owns no cell of the mesh")
+        # a thread a cell, kept for the engine's life: its threads start at
+        # the first step and end when the engine is collected; they take
+        # turns at the host (core/host_turn.py)
+        self._pool = (ThreadPoolExecutor(len(own), "krepp-mesh-cell")
+                      if concurrent else None)
+        self._turn = threading.Lock()
         super().__init__(dindex, hdist_th, device=own[0][2])
 
     # --------------------------------------------------------- table builds
@@ -154,6 +190,9 @@ class ShardedQueryEngine(QueryEngine):
                 t.update(dev=dev, bounds=self._bounds[s])
                 placed[s, dev] = t
             self._cells[g, s] = placed[s, dev]
+            # built here, not at first use: the cells' threads only read
+            if dev not in self._rowmaps:
+                self._rowmaps[dev] = _RowMap(di, dev)
 
     def _build_shards(self, di: DeviceIndex,
                       force_flavor: Optional[str] = None):
@@ -223,9 +262,52 @@ class ShardedQueryEngine(QueryEngine):
         return blocks
 
     def _rowmap(self, dev) -> _RowMap:
-        if dev not in self._rowmaps:
-            self._rowmaps[dev] = _RowMap(self.di, dev)
         return self._rowmaps[dev]
+
+    # ----------------------------------------------------------- cell threads
+    def _host_turn(self):
+        """The block holds this engine's host turn (cells at once), or
+        nothing (in turn: one thread)."""
+        return (host_turn(self._turn) if self.concurrent
+                else contextlib.nullcontext())
+
+    def _run(self, jobs: Sequence[Tuple[str, torch.device, Callable]]):
+        """Run each job (label, device, fn) under its device: each on a
+        host thread of its own, all at once, or with concurrent=False one
+        after the other on this thread. Returns the results in job order
+        once every job has ended; the first failed job's exception (in job
+        order) is then raised here, with a note naming its label."""
+        def call(job):
+            label, dev, fn = job
+            try:
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    return fn()
+            except Exception as exc:
+                exc.add_note(f"in {label}")
+                raise
+
+        if not self.concurrent:
+            return [call(job) for job in jobs]
+        futs = [self._pool.submit(call, job) for job in jobs]
+        wait(futs)
+        return [fut.result() for fut in futs]
+
+    def _run_cells(self, B: int, step):
+        """step(t, row slice) on every owned cell (`_run`) -> {data row:
+        [its cells' results in shard order]}, rows ascending."""
+        jobs, rows = [], []
+        for g, cells in self._row_cells().items():
+            sl = self._row_slice(B, g)
+            for s, t in cells:
+                jobs.append((f"mesh cell (data row {g}, shard {s}) on "
+                             f"{t['dev']}", t["dev"],
+                             lambda t=t, sl=sl: step(t, sl)))
+                rows.append(g)
+        out: Dict[int, List] = {}
+        for g, res in zip(rows, self._run(jobs)):
+            out.setdefault(g, []).append(res)
+        return out
 
     # ------------------------------------------------------- sharded probe
     def _shard_route(self, urow, resident, t):
@@ -254,6 +336,7 @@ class ShardedQueryEngine(QueryEngine):
         mine, sidx, hrow = self._shard_route(urow, resident, t)
         return res2, mine, sidx, hrow, onmers
 
+    @_taking_turns
     def _shard_probe(self, t, codes, lengths, exact: bool, tier: int):
         """One shard's partial probe of a data row: (hist [2, B, S, X],
         minall [2, B], onmers [B], overflow int32 [1]) on its device."""
@@ -295,10 +378,11 @@ class ShardedQueryEngine(QueryEngine):
                 ov.to(torch.int32).reshape(1))
 
     def _row_cells(self):
-        """{data row: [cell tables in shard order]} of this process."""
+        """{data row: [(shard, cell table) in shard order]} of this
+        process."""
         rows: Dict[int, List] = {}
         for g, s, _ in self.mesh.own():
-            rows.setdefault(g, []).append(self._cells[g, s])
+            rows.setdefault(g, []).append((s, self._cells[g, s]))
         return rows
 
     def _row_slice(self, B: int, g: int) -> slice:
@@ -314,11 +398,10 @@ class ShardedQueryEngine(QueryEngine):
         whole batch on the lead device: each data row's shard partials
         merged exactly (a probe's bucket lives on one shard)."""
         del tables                      # the shards' own tables are used
+        partials = self._run_cells(codes.shape[0], lambda t, sl: (
+            self._shard_probe(t, codes[sl], lengths[sl], exact, tier)))
         rows = {}
-        for g, cells in self._row_cells().items():
-            sl = self._row_slice(codes.shape[0], g)
-            parts = [self._shard_probe(t, codes[sl], lengths[sl], exact,
-                                       tier) for t in cells]
+        for g, parts in partials.items():
             hist = self._reduce(g, [p[0] for p in parts], "sum")
             minall = self._reduce(g, [p[1] for p in parts], "min")
             ov = self._reduce(g, [p[3] for p in parts], "max")
@@ -352,26 +435,36 @@ class ShardedQueryEngine(QueryEngine):
         Kl = (Bl * S if lane_cap is None
               else min(Bl * S, max(lane_cap // nd, 4096)))
         etier = max(tier, 2) if exact else tier
-        rows = {}
-        for g, cells in self._row_cells().items():
-            sl = self._row_slice(B, g)
-            parts = [self._shard_lanes(t, codes[sl], lengths[sl], etier)
-                     for t in cells]
-            nb = self._reduce(g, [p[0] for p in parts], "cat")
-            leaf = self._reduce(g, [p[1] for p in parts], "cat")
-            hist = self._reduce(g, [p[2] for p in parts], "cat")
-            minall = self._reduce(g, [p[3] for p in parts], "min")
-            ov = self._reduce(g, [p[4] for p in parts], "max")
-            onmers = parts[0][5].to(self.device)
-            idx, lv, h_or, h_rc, lane_over = self._event_lane_join(
-                nb, leaf, hist, Kl, Bl)
-            L = self._stage2_core(idx, lv, h_or, h_rc, minall[:Bl],
-                                  minall[Bl:], onmers, leaf_ok, lane_over)
-            # group g owns reads [g*Bl, (g+1)*Bl): its lanes stay ascending
-            L["idx"] = torch.where(L["lv"], L["idx"] + g * Bl * S,
-                                   nd * Bl * S).to(torch.int32)
-            rows[g] = tuple(L[k] for k in LANE_KEYS) + (
-                onmers, L["lane_over"].to(torch.int32).reshape(1), ov)
+        partials = self._run_cells(B, lambda t, sl: self._shard_lanes(
+            t, codes[sl], lengths[sl], etier))
+        # each row's partials merged on the row's first card, in cell order
+        merged = {}
+        for g, parts in partials.items():
+            dev = parts[0][0].device
+            merged[g] = (dev,) + tuple(
+                self._reduce(g, [p[i] for p in parts], op, dev)
+                for i, op in enumerate(("cat", "cat", "cat", "min", "max")))
+
+        def row_stage2(g, dev, nb, leaf, hist, minall, ov):
+            with self._host_turn():
+                idx, lv, h_or, h_rc, lane_over = self._event_lane_join(
+                    nb, leaf, hist, Kl, Bl)
+                onmers = partials[g][0][5]
+                L = self._stage2_core(idx, lv, h_or, h_rc, minall[:Bl],
+                                      minall[Bl:], onmers, leaf_ok.to(dev),
+                                      lane_over)
+                # group g owns reads [g*Bl, (g+1)*Bl): its lanes stay
+                # ascending
+                L["idx"] = torch.where(L["lv"], L["idx"] + g * Bl * S,
+                                       nd * Bl * S).to(torch.int32)
+                return tuple(L[k] for k in LANE_KEYS) + (
+                    onmers, L["lane_over"].to(torch.int32).reshape(1), ov)
+
+        lanes = self._run([(f"stage 2 of data row {g} on {m[0]}", m[0],
+                            lambda g=g, m=m: row_stage2(g, *m))
+                           for g, m in merged.items()])
+        rows = {g: tuple(x.to(self.device) for x in out)
+                for g, out in zip(merged, lanes)}
         out = self._gather_rows(rows)
         L = dict(zip(LANE_KEYS, out))
         safe = torch.clamp(L["idx"], max=B * S - 1).to(torch.int64)
@@ -380,6 +473,7 @@ class ShardedQueryEngine(QueryEngine):
         L["lane_over"] = out[-2].amax() > 0
         return L, out[-3], out[-1].amax() > 0
 
+    @_taking_turns
     def _shard_lanes(self, t, codes, lengths, etier: int):
         """One shard's event lanes of a data row: (nb_lane, leaf_lane,
         hist_lanes, minall [2B], overflow int32 [1], onmers)."""
@@ -395,10 +489,11 @@ class ShardedQueryEngine(QueryEngine):
         return nb, leaf, hist, minall, ov.to(torch.int32).reshape(1), onmers
 
     # --------------------------------------------------------- collectives
-    def _reduce(self, g: int, parts, op: str):
-        """Merge one data row's shard partials on the lead device: "sum",
-        "min", "max" (elementwise) or "cat" (in shard order)."""
-        x = [p.to(self.device) for p in parts]
+    def _reduce(self, g: int, parts, op: str, dev=None):
+        """Merge one data row's shard partials on `dev` (default: the lead
+        device): "sum", "min", "max" (elementwise) or "cat" (in shard
+        order)."""
+        x = [p.to(self.device if dev is None else dev) for p in parts]
         if op == "cat":
             y = torch.cat(x)
         elif op == "sum":
@@ -409,7 +504,7 @@ class ShardedQueryEngine(QueryEngine):
 
     def _reduce_across(self, g: int, x, op: str):
         """The same merge with the row's cells of other processes (none in
-        one process)."""
+        one process); the result on x's device."""
         return x
 
     def _gather_rows(self, rows):

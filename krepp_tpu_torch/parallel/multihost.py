@@ -6,7 +6,10 @@ out in rank order, as `jax.devices()` is: rank r owns cells
 [r * L, (r + 1) * L) of the row-major [n_data, n_shard] grid, L = n_data *
 n_shard / processes, and uploads only those cells' shard blocks (the
 counterpart of `make_array_from_callback`). Every process runs the same
-program on the same inputs (SPMD convention). Two layouts exist: a data
+program on the same inputs (SPMD convention), and runs the cells it owns
+at once, a host thread a cell (ShardedQueryEngine); collectives are called
+on the calling thread only, once every cell's step has returned, in one
+order on every process. Two layouts exist: a data
 row inside one process (L a multiple of n_shard; only the gather of the
 rows' outputs crosses processes), or a data row over several processes
 (n_shard a multiple of L; the shard merge itself crosses them).
@@ -74,7 +77,8 @@ class MultiHostQueryEngine(ShardedQueryEngine):
     """ShardedQueryEngine over a mesh that spans processes (see the module
     docstring); every process gets the whole batch's results."""
 
-    def __init__(self, dindex, mesh: QueryMesh, hdist_th: int = 4):
+    def __init__(self, dindex, mesh: QueryMesh, hdist_th: int = 4,
+                 concurrent: bool = True):
         self._nccl = dist.get_backend() == "nccl"
         # every process creates every group, in the same order
         self._row_groups = {}
@@ -93,7 +97,7 @@ class MultiHostQueryEngine(ShardedQueryEngine):
                 grp = dist.new_group(members)
                 if mesh.rank in members:
                     self._col_group = (grp, len(members))
-        super().__init__(dindex, mesh, hdist_th)
+        super().__init__(dindex, mesh, hdist_th, concurrent)
 
     def _to_comm(self, x):
         """The tensor a collective takes: on the rank's card for NCCL, in
@@ -109,7 +113,7 @@ class MultiHostQueryEngine(ShardedQueryEngine):
         y = self._to_comm(x)
         outs = [torch.empty_like(y) for _ in range(size)]
         dist.all_gather(outs, y, group=grp)
-        return torch.cat(outs).to(self.device, x.dtype)
+        return torch.cat(outs).to(x.device, x.dtype)
 
     def _reduce_across(self, g: int, x, op: str):
         group = self._row_groups.get(g)
@@ -119,7 +123,7 @@ class MultiHostQueryEngine(ShardedQueryEngine):
             return self._all_gather(x, group)
         y = self._to_comm(x)
         dist.all_reduce(y, op=_OPS[op], group=group[0])
-        return y.to(self.device, x.dtype)
+        return y.to(x.device, x.dtype)
 
     def _gather_rows(self, rows):
         own = super()._gather_rows(rows)

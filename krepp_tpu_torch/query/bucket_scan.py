@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core.codec import hdist_lr32
+from ..core.host_turn import host_int
 from .kernels import HD_SENTINEL
 
 PHASE1_C = 4
@@ -95,7 +96,7 @@ def probe_strand(enc_se, mask_tab, expand, start, cnt, res, th: int, W: int,
     X = th + 1
     dev = res.device
     C = min(PHASE1_C, max_bucket)
-    maxcnt = min(int(cnt.max()), max_bucket) if cnt.numel() else 0
+    maxcnt = min(host_int(cnt.max()), max_bucket) if cnt.numel() else 0
     Mm = torch.zeros((X, B, P, W), dtype=torch.int32, device=dev)
     gmin = torch.full((B, P), HD_SENTINEL, dtype=torch.int32, device=dev)
     Mm, gmin = _scan_loop(enc_se, mask_tab, start, cnt, res, th, W,
@@ -121,7 +122,7 @@ def probe_strand(enc_se, mask_tab, expand, start, cnt, res, th: int, W: int,
     hres = res.reshape(N)[hidx]
     hMm = torch.zeros((X, K, W), dtype=torch.int32, device=dev)
     hgmin = torch.full((K,), HD_SENTINEL, dtype=torch.int32, device=dev)
-    hmax = min(int(hcnt.max()), max_bucket)
+    hmax = min(host_int(hcnt.max()), max_bucket)
     hMm, hgmin = _scan_loop(enc_se, mask_tab, hstart, hcnt, hres, th, W,
                             C, hmax, hMm, hgmin)
     # merge with the heavy probes' phase-1 masks
@@ -149,7 +150,7 @@ def probe_strand_full(enc_se, mask_tab, expand, start, cnt, res, th: int,
     Returns (hist [B, S, th+1] int32, minall [B] int32)."""
     B, P = res.shape
     X = th + 1
-    maxcnt = min(int(cnt.max()), max_bucket) if cnt.numel() else 0
+    maxcnt = min(host_int(cnt.max()), max_bucket) if cnt.numel() else 0
     Mm = torch.zeros((X, B, P, W), dtype=torch.int32, device=res.device)
     gmin = torch.full((B, P), HD_SENTINEL, dtype=torch.int32,
                       device=res.device)
@@ -166,7 +167,7 @@ def scan_buckets_min(enc_v, start, cnt, res, th: int, max_bucket: int):
     nk = max(enc_v.shape[0], 1)
     gmin = torch.full(res.shape, HD_SENTINEL, dtype=torch.int32,
                       device=res.device)
-    maxcnt = min(int(cnt.max()), max_bucket) if cnt.numel() else 0
+    maxcnt = min(host_int(cnt.max()), max_bucket) if cnt.numel() else 0
     for j in range(maxcnt):
         hd = hdist_lr32(enc_v[torch.clamp(start + j, max=nk - 1)], res)
         gmin = torch.where(j < cnt, torch.minimum(gmin, hd), gmin)

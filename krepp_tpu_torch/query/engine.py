@@ -37,6 +37,7 @@ import torch
 from .. import resolve_device
 from ..core import codec
 from ..core.compact import compact_mask_indices, compact_mask_indices_strided
+from ..core.host_turn import host_int, host_wait
 from ..core.llh import F, brent_llh, make_llh, make_llh_np
 from ..index.index import DeviceIndex, DeviceSketch
 from .bucket_scan import (_scan_loop, make_expander, probe_strand,
@@ -458,7 +459,8 @@ class QueryEngine:
             else:
                 start_d = start[dsafe]
             dcnt = torch.where(dlive, hcnt[dsafe], 0)
-            hmax = min(int(dcnt.max()), max_bucket) if dcnt.numel() else 0
+            hmax = (min(host_int(dcnt.max()), max_bucket) if dcnt.numel()
+                    else 0)
             Mm2 = torch.zeros((X, dsafe.shape[0], self.W), dtype=torch.int32,
                               device=dev)
             gmin2 = torch.full((dsafe.shape[0],), HD_SENTINEL,
@@ -466,6 +468,7 @@ class QueryEngine:
             Mm2, gmin2 = _scan_loop(enc_se, mask_tab, start_d, dcnt,
                                     hres[dsafe], th, self.W, MB, hmax,
                                     Mm2, gmin2)
+            host_wait(dev)              # the mask index below syncs
             di_live = dsafe[dlive]
             Mm[:, di_live] = Mm[:, di_live] | Mm2[:, dlive]
             hgmin = hgmin.scatter_reduce(
@@ -744,7 +747,7 @@ class QueryEngine:
         onm_l = onmers[lb]
         uc_or = (onm_l - mc_or).to(F)
         uc_rc = (onm_l - mc_rc).to(F)
-        rho_l = self._rho_slot[ls]
+        rho_l = self._rho_slot.to(dev)[ls]   # sharded: a data row's card
         bx_or = (h_or * xs[None, :]).sum(dim=-1, dtype=torch.int32).to(F)
         bx_rc = (h_rc * xs[None, :]).sum(dim=-1, dtype=torch.int32).to(F)
         A2 = torch.cat([mc_or.to(F), mc_rc.to(F)])

@@ -33,6 +33,7 @@ import torch
 
 from ..core.codec import hdist_lr32
 from ..core.compact import compact_mask_indices, compact_mask_indices_strided
+from ..core.host_turn import host_int
 from .kernels import HD_SENTINEL
 
 # heavy buckets up to this depth are rescanned with one unrolled padded
@@ -195,7 +196,7 @@ def event_probe_lanes(slots_d, enc_se, row_start, leaf_off, leaf_slots,
             je = torch.arange(E, dtype=torch.int32, device=dev)
             bsehd = torch.zeros((K2a, E), dtype=torch.int32, device=dev)
             nm = torch.zeros((K2a,), dtype=torch.int32, device=dev)
-            hmax = min(int(dcnt.max()), max_bucket) if K2a else 0
+            hmax = min(host_int(dcnt.max()), max_bucket) if K2a else 0
             for j in range(MB, hmax):
                 pr = enc_se[torch.clamp(dstart + j, max=nk - 1)]
                 hdd = hdist_lr32(pr[:, 0], dres)
@@ -362,7 +363,7 @@ def event_probe(slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
         start = row_start[hrow.reshape(Np)[hsafe]]
         hcnt = torch.where(live, row_start[hrow.reshape(Np)[hsafe] + 1]
                            - start, 0).to(torch.int32)
-        hmax = min(int(hcnt.max()), max_bucket) if KHa else 0
+        hmax = min(host_int(hcnt.max()), max_bucket) if KHa else 0
         je = torch.arange(E, dtype=torch.int32, device=dev)
         bse = torch.zeros((KHa, E), dtype=torch.int32, device=dev)
         bhd = torch.zeros((KHa, E), dtype=torch.int32, device=dev)

@@ -21,7 +21,8 @@ kernel launches (nothing else adds to it). The two epilogue wrappers also
 have a measurement hook: with `<name>.keep_next = True` the next launch
 leaves copies of its arguments in `<name>.kept` (and resets the flag), so
 a benchmark can time the kernel on a batch of the main path. Nothing in
-the package sets it.
+the package sets it. Both go through core/launches.py's lock, so they stay
+exact when the sharded engine launches from a host thread a card.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import ctypes
 import torch
 
 from ..core.codec import hdist_lr32
+from ..core.launches import count_launch, take_keep
 from ..core.llh import brent_llh, brent_llh_ref  # noqa: F401
 
 HD_SENTINEL = 255          # "no match" Hamming distance marker
@@ -116,8 +118,7 @@ def probe_hist_packed(res: torch.Tensor, light: torch.Tensor,
     minall = torch.empty((N,), dtype=torch.int32, device=res.device)
     if N == 0:
         return hist, minall
-    if probe_hist_packed.keep_next:
-        probe_hist_packed.keep_next = False
+    if take_keep(probe_hist_packed):
         probe_hist_packed.kept = (res.clone(), light.clone(), d.clone(), th,
                                   C0, S)
     fn = _launcher()
@@ -127,7 +128,7 @@ def probe_hist_packed(res: torch.Tensor, light: torch.Tensor,
                 th, C0, S, hist.data_ptr(), minall.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"probe_hist_packed launch failed: cudaError {rc}")
-    probe_hist_packed.launches += 1
+    count_launch(probe_hist_packed)
     return hist, minall
 
 
@@ -246,8 +247,7 @@ def probe_hist_tiles(res: torch.Tensor, light: torch.Tensor, d: torch.Tensor,
     minall = torch.empty((N,), dtype=torch.int32, device=res.device)
     if N == 0:
         return hist, minall
-    if probe_hist_tiles.keep_next:
-        probe_hist_tiles.keep_next = False
+    if take_keep(probe_hist_tiles):
         probe_hist_tiles.kept = (res.clone(), light.clone(), d.clone(),
                                  mask_tab, th, C0, W, S)
     fn = _tiles_launcher()
@@ -259,7 +259,7 @@ def probe_hist_tiles(res: torch.Tensor, light: torch.Tensor, d: torch.Tensor,
                 th, C0, W, S, hist.data_ptr(), minall.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"probe_hist_tiles launch failed: cudaError {rc}")
-    probe_hist_tiles.launches += 1
+    count_launch(probe_hist_tiles)
     return hist, minall
 
 
@@ -330,7 +330,7 @@ def hdist_chunk(res: torch.Tensor, enc: torch.Tensor, cnt: torch.Tensor,
                 hd.data_ptr(), gmin.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"hdist_chunk launch failed: cudaError {rc}")
-    hdist_chunk.launches += 1
+    count_launch(hdist_chunk)
     return hd, gmin
 
 
@@ -399,7 +399,7 @@ def dma_gather(tab: torch.Tensor, idx: torch.Tensor,
                 rows_per_block, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dma_gather launch failed: cudaError {rc}")
-    dma_gather.launches += 1
+    count_launch(dma_gather)
     return out
 
 

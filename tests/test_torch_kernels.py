@@ -93,6 +93,59 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def test_launch_counts_and_the_keep_hook_are_exact_under_threads(
+        monkeypatch):
+    """The five wrappers' counts and the three keep hooks go through
+    core/launches.py's lock: 8 threads that count 2,000 launches each on
+    every wrapper at once leave exactly 16,000 more on each, and of 8
+    threads that race for a set keep_next exactly one takes it."""
+    import sys
+    import threading
+
+    from krepp_tpu_torch.core.launches import count_launch, take_keep
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)     # switch threads as often as it can
+    wrappers = [getattr(kernels, n) for n in (
+        "probe_hist_packed", "probe_hist_tiles", "hdist_chunk", "dma_gather",
+        "brent_llh")]
+    hooked = wrappers[:2] + wrappers[-1:]
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    for fn in hooked:
+        monkeypatch.setattr(fn, "keep_next", False)
+    before = [fn.launches for fn in wrappers]
+    start = threading.Barrier(8)
+    taken = []
+
+    def launch():
+        start.wait()
+        for _ in range(2000):
+            for fn in wrappers:
+                count_launch(fn)
+
+    def race():
+        start.wait()
+        taken.extend(fn for fn in hooked for _ in range(50)
+                     if take_keep(fn))
+
+    try:
+        for work in (launch, race):
+            if work is race:
+                for fn in hooked:
+                    fn.keep_next = True
+            threads = [threading.Thread(target=work) for _ in range(8)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert [fn.launches - b for fn, b in zip(wrappers, before)] == [16000] * 5
+    assert sorted(map(id, taken)) == sorted(map(id, hooked))
+    assert not any(fn.keep_next for fn in hooked)
+
+
 def test_all_dark_rows_report_no_match():
     rng = np.random.default_rng(4)
     args = _torch_args(*_inputs(rng, 40, 166, 2, 24, 4, dark=True))

@@ -1,9 +1,10 @@
 """Two processes over gloo on the host (torch.distributed), as
 tests/test_multihost.py and tests/test_multihost_cli.py run krepp_tpu: the
 port's MultiHostQueryEngine at 2x2 (two local CPU devices a process: the
-data rows stay inside a process), 1x2 (one each: the shard merge crosses
-processes) and 2x2 over four processes (both) against the single-process
-engine, and `dist` /
+data rows stay inside a process, and each process's two cells wait on a
+barrier their steps must reach at once), 1x2 (one each: the shard merge
+crosses processes) and 2x2 over four processes (both) against the
+single-process engine, and `dist` /
 `place --mesh 2x2 -o` through the CLI, whose rank files, concatenated with
 the header once, are krepp_tpu's single-device output byte for byte. Each
 child has a timeout and is killed with its peer when either fails; the
@@ -53,7 +54,14 @@ try:
     lengths = np.full(9, 150, np.int32)
     mesh = make_global_mesh(nd, ns, "cpu")
     assert len(mesh.own()) == nd * ns // nproc
+    # every cell of this process must be in its step at once
+    import threading
+    barrier = threading.Barrier(len(mesh.own()), timeout=60)
+    step = MultiHostQueryEngine._shard_probe
+    MultiHostQueryEngine._shard_probe = lambda self, *a: (
+        barrier.wait(), step(self, *a))[1]
     eng = MultiHostQueryEngine(DeviceIndex.from_built(built), mesh, 4)
+    assert eng.concurrent
     lr = eng.fetch_leaf_stage(eng.run_leaf_stage_async(codes, lengths),
                               lengths, codes=codes)
     np.savez(outp, present=lr.present, hist=lr.hist, d=lr.d,

@@ -1,11 +1,19 @@
 """Port ShardedQueryEngine vs the port's single-device engine and
 krepp_tpu's ShardedQueryEngine (on the conftest's 8 virtual CPU devices):
-dense (h = 11) and sparse (h = 13) row spaces at meshes (1, 8), (2, 4) and
-(8, 1), in hybrid, CSR, event-lane and dense-event modes, a tier re-run
-forced through the heavy cap, a natural many-genome (no bitmask) world,
-the dense event probe against the reference's, the per-tier resident cap
-the port keeps where the reference's sharded lanes do not, and `--mesh`
-through the CLI on the host. Integers equal, `d` within 5e-9."""
+dense (h = 11) and sparse (h = 13) row spaces at meshes 1x2, 2x2, 1x8, 2x4
+and 8x1, in hybrid, CSR, event-lane and dense-event modes, the engine
+that runs its cells at once (the default) and the one that runs them in
+turn (concurrent=False); dist and place reports of both byte for byte the
+one-device port's and krepp_tpu's; a barrier every cell must reach at once
+(which the in-turn engine breaks), a failing cell named in its exception,
+a tier re-run forced through the heavy cap, a natural many-genome (no
+bitmask) world, the dense event probe against the reference's, the
+per-tier resident cap the port keeps where the reference's sharded lanes
+do not, and `--mesh` through the CLI on the host. Integers equal, `d`
+within 5e-9."""
+
+import io
+import threading
 
 import numpy as np
 import pytest
@@ -17,12 +25,18 @@ from krepp_tpu import testing as jtesting
 from krepp_tpu.index.index import DeviceIndex as JDeviceIndex
 from krepp_tpu.parallel import mesh as jmesh
 from krepp_tpu.query import engine as jengine
+from krepp_tpu.query.dist import run_dist as jrun_dist
+from krepp_tpu.query.place import PlaceConfig as JPlaceConfig
+from krepp_tpu.query.place import run_place as jrun_place
 from krepp_tpu_torch import cli
+from krepp_tpu_torch import testing as ttesting
 from krepp_tpu_torch.index.index import DeviceIndex
 from krepp_tpu_torch.parallel import boot
 from krepp_tpu_torch.parallel.mesh import (ShardedQueryEngine,
                                            make_query_mesh, parse_mesh)
 from krepp_tpu_torch.query import engine
+from krepp_tpu_torch.query.dist import run_dist
+from krepp_tpu_torch.query.place import PlaceConfig, run_place
 
 from test_torch_engine import _assert_tuple_equal
 from test_torch_event import _assert_leaf_equal
@@ -30,7 +44,8 @@ from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 
-MESHES = [(1, 8), (2, 4), (8, 1)]
+MESHES = [(1, 2), (2, 2), (1, 8), (2, 4), (8, 1)]
+MODES = ["hybrid", "csr", "event", "dense"]
 WORLDS = {
     # tests/test_sharded.py's two row spaces
     "h11-dense": dict(seed=31, nleaves=6, glen=1500, k=27, h=11, m=4),
@@ -82,21 +97,158 @@ def _engines(name, mesh, mode, monkeypatch):
     return single, sharded, codes, lengths
 
 
+def _in_turn(sharded):
+    """The engine of `sharded`'s index and mesh that runs its cells in
+    turn (build it while the mode's patches are in place)."""
+    return ShardedQueryEngine(sharded.di, sharded.mesh, 4, concurrent=False)
+
+
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
-@pytest.mark.parametrize("mode", ["hybrid", "csr", "event", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", ["h11-dense", "h13-sparse"])
 def test_sharded_equals_single_device(name, mode, mesh, monkeypatch):
     single, sharded, codes, lengths = _engines(name, mesh, mode, monkeypatch)
-    assert (sharded._rowmap(torch.device("cpu")) is not None
-            and sharded._dense_space == (name == "h11-dense"))
+    assert sharded.concurrent and (
+        sharded._rowmap(torch.device("cpu")) is not None
+        and sharded._dense_space == (name == "h11-dense"))
+    in_turn = _in_turn(sharded)
     want = _leaf_stage(single, codes, lengths)
-    got = _leaf_stage(sharded, codes, lengths)
+    for eng in (sharded, in_turn):
+        got = _leaf_stage(eng, codes, lengths)
+        _assert_leaf_equal(want, got, FIELDS)
+        assert got.present.sum() > 10 and got.closest_slot.shape == (11,)
+        # the compact dist fetch too
+        _assert_leaf_equal(_leaf_stage(single, codes, lengths, "dist_ratio"),
+                           _leaf_stage(eng, codes, lengths, "dist_ratio"),
+                           ("present", "d", "closest_slot", "hist_closest"))
+
+
+@pytest.fixture(scope="module")
+def report_world(tmp_path_factory):
+    """h13-sparse's reads as FASTQ and krepp_tpu's one-device dist and
+    place reports of them (its default mode: every mode's report is the
+    same)."""
+    jdi, codes, _ = _world("h13-sparse")
+    fq = str(tmp_path_factory.mktemp("torch_sharded_reports") / "q.fq")
+    ttesting.write_fastq(fq, codes)
+    want = {}
+    for cmd, run, cfg in (("dist", jrun_dist, None),
+                          ("place", jrun_place, JPlaceConfig(tabular=True))):
+        out = io.StringIO()
+        run(jdi, fq, out, "inv", cfg)
+        want[cmd] = out.getvalue()
+    return fq, want
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2), (2, 4)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_sharded_reports_are_the_reference_reports(report_world, mode, mesh,
+                                                   monkeypatch):
+    """dist and place --tabular through run_dist / run_place: the engine
+    that runs its cells at once, the one that runs them in turn and the
+    one-device port, each krepp_tpu's report byte for byte."""
+    fq, want = report_world
+    single, sharded, _, _ = _engines("h13-sparse", mesh, mode, monkeypatch)
+    engines = (single, sharded, _in_turn(sharded))
+    for cmd, run, cfg in (("dist", run_dist, None),
+                          ("place", run_place, PlaceConfig(tabular=True))):
+        for eng in engines:
+            out = io.StringIO()
+            run(eng.di, fq, out, "inv", cfg, engine_factory=lambda d, t: eng,
+                device="cpu")
+            assert out.getvalue() == want[cmd], (cmd, type(eng).__name__,
+                                                 getattr(eng, "concurrent",
+                                                         None))
+        assert want[cmd].count("\n") > 11
+
+
+def _wrap_step(monkeypatch, mode, before):
+    """Patch the cell step of `mode` (`_shard_lanes` in the event-lane
+    form, else `_shard_probe`) to call before(engine, cell table, the data
+    row's codes) first."""
+    name = "_shard_lanes" if mode == "event" else "_shard_probe"
+    step = getattr(ShardedQueryEngine, name)
+
+    def wrapped(self, t, *args):
+        before(self, t, args[0])
+        return step(self, t, *args)
+
+    monkeypatch.setattr(ShardedQueryEngine, name, wrapped)
+
+
+def _within(seconds: float, fn):
+    """fn() on a thread of its own; fails unless it ends within `seconds`.
+    Returns ("value", result) or ("error", the exception raised)."""
+    out = []
+
+    def call():
+        try:
+            out.append(("value", fn()))
+        except BaseException as exc:        # noqa: BLE001 (handed back)
+            out.append(("error", exc))
+
+    th = threading.Thread(target=call, daemon=True)
+    th.start()
+    th.join(seconds)
+    assert not th.is_alive(), f"still running after {seconds} s"
+    return out[0]
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "event"])
+def test_every_cell_runs_at_once(mode, monkeypatch):
+    """Each cell's step waits on a barrier of all four cells of a 2x2
+    mesh: the default engine passes it (and gives the one-device result),
+    the in-turn engine's first cell waits alone and breaks it."""
+    single, sharded, codes, lengths = _engines("h11-dense", (2, 2), mode,
+                                               monkeypatch)
+    in_turn = _in_turn(sharded)
+    want = _leaf_stage(single, codes, lengths)
+    barrier = []
+    _wrap_step(monkeypatch, mode, lambda *_: barrier[-1].wait())
+    barrier.append(threading.Barrier(4, timeout=30))
+    kind, got = _within(60, lambda: _leaf_stage(sharded, codes, lengths))
+    assert kind == "value", got
     _assert_leaf_equal(want, got, FIELDS)
-    assert got.present.sum() > 10 and got.closest_slot.shape == (11,)
-    # the compact dist fetch too
-    _assert_leaf_equal(_leaf_stage(single, codes, lengths, "dist_ratio"),
-                       _leaf_stage(sharded, codes, lengths, "dist_ratio"),
-                       ("present", "d", "closest_slot", "hist_closest"))
+    barrier.append(threading.Barrier(4, timeout=1))
+    kind, err = _within(30, lambda: _leaf_stage(in_turn, codes, lengths))
+    assert kind == "error" and isinstance(err, threading.BrokenBarrierError)
+    assert "in mesh cell (data row 0, shard 0) on cpu" in err.__notes__
+
+
+@pytest.mark.parametrize("concurrent", [True, False],
+                         ids=["at-once", "in-turn"])
+@pytest.mark.parametrize("mode", ["hybrid", "event"])
+def test_a_failing_cell_is_named_and_nothing_is_merged(mode, concurrent,
+                                                       monkeypatch):
+    """Cell (1, 0) of a 2x2 mesh raises: the caller gets its exception,
+    naming the cell, once the other cells have ended, and no partial was
+    merged; the engine then runs the next batch as before."""
+    single, sharded, codes, lengths = _engines("h11-dense", (2, 2), mode,
+                                               monkeypatch)
+    if not concurrent:
+        sharded = _in_turn(sharded)
+    armed = [True]
+
+    def fail(eng, t, codes):
+        # the host repeated: the data rows share each shard's table, and
+        # row 1's codes are a view past row 0's
+        if armed[0] and t is eng._cells[1, 0] and codes.storage_offset():
+            raise ValueError("cell failure")
+
+    merges = []
+    reduce = ShardedQueryEngine._reduce
+    _wrap_step(monkeypatch, mode, fail)
+    monkeypatch.setattr(ShardedQueryEngine, "_reduce", lambda self, *a: (
+        merges.append(a[0]), reduce(self, *a))[1])
+    kind, err = _within(60, lambda: _leaf_stage(sharded, codes, lengths))
+    assert kind == "error" and str(err) == "cell failure", err
+    assert err.__notes__ == ["in mesh cell (data row 1, shard 0) on cpu"]
+    assert merges == []
+    armed[0] = False
+    _assert_leaf_equal(_leaf_stage(single, codes, lengths),
+                       _leaf_stage(sharded, codes, lengths), FIELDS)
+    assert merges
 
 
 @pytest.mark.parametrize("name,mesh", [("h11-dense", (2, 4)),
@@ -254,7 +406,6 @@ def test_mesh_specs_and_counts_are_checked(monkeypatch, tmp_path):
 def test_cli_mesh_runs_on_the_host(tmp_path, capsys):
     """`dist` / `place --mesh 1x2 --device cpu` print the single-device
     output; `--mesh 1x2` on a card this machine lacks raises."""
-    from krepp_tpu_torch import testing as ttesting
     from krepp_tpu_torch.index.artifact import save_native
 
     built, genomes, _ = ttesting.build_world_index(**WORLDS["h13-sparse"])
@@ -271,3 +422,45 @@ def test_cli_mesh_runs_on_the_host(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             cli.main(["dist"] + base[:-2] + ["--mesh", "1x2"])
+
+
+def test_chip_smoke_overlap_counts_two_or_more_busy_cards():
+    """chip_smoke.py's overlap reading of a profiled pass: each card's
+    entries summed and merged, and the time in which two or more cards
+    were busy at once."""
+    import chip_smoke
+
+    ms = 1_000_000
+    summed, busy, both = chip_smoke.overlap_ms({
+        0: [(0, 4 * ms), (2 * ms, 5 * ms), (9 * ms, 10 * ms)],
+        1: [(4 * ms, 7 * ms)],               # with card 0 in [4, 5)
+        2: [(5 * ms, 6 * ms), (6 * ms, 9 * ms)],   # [5, 7) with card 1
+    })
+    assert summed == {0: 8.0, 1: 3.0, 2: 4.0}
+    assert busy == {0: 6.0, 1: 3.0, 2: 4.0}
+    assert both == 3.0
+    assert chip_smoke.overlap_ms({0: [(0, ms)], 1: [(ms, 2 * ms)]})[2] == 0
+
+
+def test_host_wait_gives_the_turn_up_while_the_card_drains(monkeypatch):
+    """core/host_turn.py: a cell thread that waits for its card (host_int,
+    host_wait) lets go of its engine's turn for the wait and holds it
+    again after; off a turn, and for host tensors, it only waits."""
+    from krepp_tpu_torch.core.host_turn import host_int, host_turn, host_wait
+
+    turn = threading.Lock()
+    free = []
+
+    class Stream:
+        def synchronize(self):
+            free.append(turn.acquire(blocking=False))
+            turn.release()
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    card = torch.device("cuda", 0)
+    with host_turn(turn):
+        host_wait(card)
+        assert turn.locked() and free == [True]
+        assert host_int(torch.tensor([7])) == 7 and free == [True]
+    host_wait(card)
+    assert free == [True] and not turn.locked()
