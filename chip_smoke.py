@@ -5,8 +5,8 @@
     python3 chip_smoke.py --multi-card   # phase 30 alone, on N >= 2 cards
 
 Drives the port's paths, `index`, `sketch`, `dist`, `place` and `seek`
-through its CLI on generated worlds and the probe microbenchmark, and
-checks them:
+through its CLI on generated worlds (from local paths and from URLs) and
+the probe microbenchmark, and checks them:
 
   1. device: CUDA must be available; prints the card and its power limit;
      `krepp_tpu` and `jax` are blocked from import for the whole run, and
@@ -212,10 +212,23 @@ checks them:
      the first 2,048 (dist) and 1,024 (place), and dist through
      ShardedQueryEngine 1x1 (1xN on N cards) byte for byte the CLI's
      one-device report.
+ 35. URL inputs: a loopback http.server on a thread serves the run's
+     directory (plain files and gzip copies); through the CLI on cuda,
+     each on its local paths first, then from http:// URLs: base dist
+     (plain FASTQ) and place (gzip) on phase 4's index, through
+     probe_hist_packed and brent_llh, `sketch` of phase 18's genome (gzip)
+     and `seek` of its reads (plain), and `index` of the sparse world's
+     genomes (every other one gzipped) from a URL map: each report, sketch
+     and directory byte for byte the local run's, and the reports and
+     sketch those of phases 5, 13 and 18; one request a file, no download
+     left in the temporary directory; dist of a missing URL in a process
+     of its own exits non-zero naming the URL; seconds from URLs beside
+     the local run, and the download of base's FASTQ and of its gzip copy
+     alone.
 
 Any failure raises (non-zero exit). Each phase prints its seconds. The line
 before the last is the kernels JSON (launches: counted over the runs on
-cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18, 20 and 28-34, the ranks
+cuda of phases 5, 7, 9, 10, 11, 13, 14, 16, 17, 18, 20 and 28-35, the ranks
 of other processes included, and for dma_gather over the microbenchmark of
 phase 12; brent_llh must launch on every query run; the build path of
 phases 22-27 runs torch ops and no hand-written kernel, which phases 23-27
@@ -2172,9 +2185,10 @@ def same_file(n, label: str, got: str, want: str,
 
     check(filecmp.cmp(got, want, shallow=False),
           f"{label}: the report differs from {what}")
-    with open(got) as f:
+    with open(got, "rb") as f:
         nlines = sum(1 for _ in f)
-    phase(n, f"{label}: {what} byte for byte ({nlines} lines)")
+    phase(n, f"{label}: {what} byte for byte ({nlines} lines, "
+             f"{os.path.getsize(got)} bytes)")
 
 
 def mesh_in_process(n: int, root: str, worlds: dict, card: str, total: dict,
@@ -3039,6 +3053,194 @@ def huge_world(n: int, root: str, card: str, total: dict):
         torch.cuda.empty_cache()
 
 
+def url_server(directory: str):
+    """A ThreadingHTTPServer of `directory` on 127.0.0.1 (a free port) on
+    a daemon thread, with no request log; its `gets` lists the paths asked
+    for. The caller shuts it down."""
+    import functools
+    import http.server
+    import threading
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def do_GET(self):
+            self.server.gets.append(self.path)
+            super().do_GET()
+
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Handler, directory=directory))
+    httpd.gets = []
+    httpd.thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    httpd.thread.start()
+    return httpd
+
+
+def gzip_copy(path: str) -> str:
+    """path + '.gz', written beside it (level 1); returns its path."""
+    import gzip
+    import shutil
+
+    with open(path, "rb") as f, gzip.open(path + ".gz", "wb",
+                                          compresslevel=1) as g:
+        shutil.copyfileobj(f, g, 1 << 20)
+    return path + ".gz"
+
+
+def url_inputs(n: int, root: str, card: str, total: dict, idx: str, fq: str,
+               base_reports, sk: str, sfq: str, seek_report: str):
+    """Phase 35: the sequence paths as http:// URLs of a loopback server of
+    `root`, through the CLI on cuda, each command run on the local paths
+    just before: the same bytes, and those of the earlier phase's run (base
+    dist and place, phase 5 and 13's `base_reports`; `sketch` and `seek`,
+    phase 18's `sk` and `seek_report`); `index` of the sparse world from a
+    URL map, the local build's directory. Plain and gzip copies. One
+    request a file, no download left in the temporary directory, and a 404
+    makes the CLI exit non-zero naming the URL."""
+    import numpy as np
+
+    from krepp_tpu_torch import cli
+    from krepp_tpu_torch.io import fastx
+    from krepp_tpu_torch.testing import make_world_codes, write_world_files
+
+    t0 = time.time()
+    fa = os.path.join(root, "target.fna")              # phase 18's genome
+    served = {"place": gzip_copy(fq), "sketch": gzip_copy(fa)}
+    # phase 7's genomes (make_world draws them from the same seed)
+    nwk, genomes = make_world_codes(
+        np.random.default_rng(SPARSE["seed"]), nleaves=SPARSE["nleaves"],
+        glen=SPARSE["glen"], rate=SPARSE["rate"])
+    refs = os.path.join(root, "sparse_refs")
+    smap, stree = write_world_files(refs, nwk, genomes)
+    del genomes
+    with open(smap) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    rows = [(name, gzip_copy(path) if i % 2 else path)
+            for i, (name, path) in enumerate(rows)]
+    phase(n, f"gzip copies and the sparse world's files written in "
+             f"{time.time() - t0:.2f} s")
+    downloads = os.path.join(root, "url_tmp")
+    os.makedirs(downloads)
+    httpd = url_server(root)
+    host = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def url(path):
+        return host + "/" + os.path.relpath(path, root)
+
+    umap = os.path.join(root, "sparse_url_map.tsv")
+    with open(umap, "w") as f:
+        f.writelines(f"{name}\t{url(path)}\n" for name, path in rows)
+
+    def left():
+        return sorted(x for x in os.listdir(downloads) if x.startswith("seq_"))
+
+    saved_tmp = tempfile.tempdir
+    saved_env = {k: os.environ.get(k) for k in ("no_proxy", "NO_PROXY")}
+    tempfile.tempdir = downloads
+    # a proxy named by the environment must not see loopback requests
+    os.environ.update(no_proxy="127.0.0.1", NO_PROXY="127.0.0.1")
+    times = {}
+    try:
+        def query(cmd, launched, local_q, url_q, index, want):
+            outs = {}
+            for tag, q in (("local", local_q), ("URL", url_q)):
+                outs[tag] = os.path.join(root, f"url_{cmd}_{tag}")
+                gets = len(httpd.gets)
+                _, counts, dt = counted_run(
+                    [cmd, "-q", q, "-i", index, "-o", outs[tag], "--device",
+                     "cuda"], launched, total)
+                check(len(httpd.gets) - gets == (tag == "URL"),
+                      f"{cmd} {tag}: {len(httpd.gets) - gets} requests")
+                check(not left(), f"{cmd} {tag} left {left()}")
+                times.setdefault(cmd, {})[tag] = dt
+                phase(n, f"{cmd} -q {q if tag == 'URL' else 'local'}: "
+                         f"{dt:.3f} s, launches={counts}")
+            same_file(n, f"{cmd} from a URL", outs["URL"], outs["local"],
+                      "the local run's report")
+            same_file(n, f"{cmd} from a URL", outs["URL"], want,
+                      "the earlier phase's report")
+
+        query("dist", "probe_hist_packed", fq, url(fq), idx, base_reports[0])
+        query("place", "probe_hist_packed", fq, url(served["place"]), idx,
+              base_reports[1])
+
+        sks = {}
+        for tag, g in (("local", fa), ("URL", url(served["sketch"]))):
+            sks[tag] = os.path.join(root, f"url_sketch_{tag}.sk")
+            gets = len(httpd.gets)
+            ts = time.time()
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(["sketch", "-i", g, "-o", sks[tag]])
+            times.setdefault("sketch", {})[tag] = time.time() - ts
+            check(rc == 0, f"sketch {tag} returned {rc}")
+            check(len(httpd.gets) - gets == (tag == "URL"),
+                  f"sketch {tag}: {len(httpd.gets) - gets} requests")
+            check(not left(), f"sketch {tag} left {left()}")
+        same_file(n, "sketch from a URL (gzip)", sks["URL"], sks["local"],
+                  "the local run's sketch")
+        same_file(n, "sketch from a URL (gzip)", sks["URL"], sk,
+                  "phase 18's sketch")
+        query("seek", None, sfq, url(sfq), sk, seek_report)
+
+        # the download alone, what a URL run adds to its local run
+        for path in (fq, served["place"]):
+            ts = time.time()
+            got = fastx.resolve_input(url(path))
+            dt = time.time() - ts
+            size = os.path.getsize(got)
+            os.unlink(got)
+            phase(n, f"download of {os.path.basename(path)} alone: {size} "
+                     f"bytes in {dt:.3f} s ({size / dt / 1e6:.1f} MB/s)")
+
+        outs = {}
+        for tag, m in (("local", smap), ("URL", umap)):
+            outs[tag] = os.path.join(root, f"url_idx_{tag}")
+            gets = len(httpd.gets)
+            nk, dt = index_cli(["-i", m, "-o", outs[tag], "-t", stree]
+                               + lsh_flags(SPARSE), SPARSE["seed"],
+                               os.cpu_count() or 1)
+            times.setdefault("index", {})[tag] = dt
+            check(len(httpd.gets) - gets == (len(rows) if tag == "URL"
+                                             else 0),
+                  f"index {tag}: {len(httpd.gets) - gets} requests")
+            check(not left(), f"index {tag} left {left()}")
+            phase(n, f"index of the sparse world from "
+                     f"{'URLs' if tag == 'URL' else 'local paths'}: {nk} "
+                     f"k-mers in {dt:.3f} s")
+        same_directory(n, "index from a URL map", outs["local"], outs["URL"])
+
+        missing = host + "/missing.fq"
+        env = dict(os.environ, TMPDIR=downloads)
+        here = os.path.dirname(os.path.abspath(__file__))
+        ts = time.time()
+        run = subprocess.run(
+            [sys.executable, "-c", CHILD, "dist", "-q", missing, "-i", idx,
+             "-o", os.path.join(root, "url_missing.tsv"), "--device",
+             "cuda"], cwd=here, env=env, capture_output=True, text=True,
+            timeout=CHILD_TIMEOUT_S)
+        check(run.returncode != 0, "dist of a missing URL exited 0")
+        said = [ln for ln in run.stderr.splitlines()
+                if f"Failed to download {missing}: " in ln]
+        check(said, f"dist of a missing URL said:\n{run.stderr[-2000:]}")
+        check(not left(), f"the missing URL left {left()}")
+        phase(n, f"dist of a missing URL: exit {run.returncode} in "
+                 f"{time.time() - ts:.1f} s, {said[-1].strip()!r}")
+    finally:
+        tempfile.tempdir = saved_tmp
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.thread.join()
+    for cmd, t in times.items():
+        phase(n, f"{cmd}: {t['URL']:.3f} s from URLs, {t['local']:.3f} s "
+                 f"from local paths ({t['URL'] / t['local']:.3f}x) on {card}")
+
+
 def multi_card_only(card: str) -> None:
     """`chip_smoke.py --multi-card`: phase 30 alone, with what it reads
     from the phases before it (the wide and many worlds at full size,
@@ -3326,6 +3528,9 @@ def main(argv=None) -> int:
                           (nidx, nfq_cpu), launches)
         with timed(34, "huge world"):
             huge_world(34, root, card, launches)
+        with timed(35, "URL inputs"):
+            url_inputs(35, root, card, launches, idx, fq, (out_gpu, pout),
+                       sk, sfq, sout)
 
     check(not reference_modules(),
           f"the run imported {reference_modules()}")
