@@ -46,10 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of host worker threads for IO/parse. [1]")
     p.add_argument("--trace-dir", default=None,
                    help="Write a torch.profiler trace of the run to this "
-                        "directory (chrome trace JSON).")
+                        "directory (chrome trace JSON), and the program's "
+                        "own spans and counters to spans.json in it.")
     p.add_argument("--verbose", action="store_true",
                    help="Print run statistics (engine mode, per-batch "
-                        "overflow re-runs) to stderr.")
+                        "overflow re-runs; with --trace-dir the span "
+                        "totals and counters) to stderr.")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sc = sub.add_parser("index", add_help=False,
@@ -230,18 +232,40 @@ def _run(args) -> int:
     if args.trace_dir:
         import torch
 
+        from .core import trace as spans
+
         trace = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA],
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 args.trace_dir))
+        spans.reset()
+        spans.enable()
     commands = {"index": cmd_index, "dist": cmd_dist, "place": cmd_place,
                 "seek": cmd_seek, "sketch": cmd_sketch,
                 "inspect": cmd_inspect}
-    with trace:
-        commands[args.cmd](args, inv)
+    try:
+        with trace:
+            commands[args.cmd](args, inv)
+    finally:
+        if args.trace_dir:
+            spans.disable()
+    if args.trace_dir:
+        _write_spans(args, spans.snapshot())
     print(f"Done, elapsed: {time.time() - t0:.2f} sec", file=sys.stderr)
     return 0
+
+
+def _write_spans(args, snap: dict) -> None:
+    """--trace-dir: the registry's snapshot to DIR/spans.json; --verbose:
+    its span totals and counters to stderr."""
+    os.makedirs(args.trace_dir, exist_ok=True)
+    with open(os.path.join(args.trace_dir, "spans.json"), "w") as f:
+        json.dump(snap, f)
+    if args.verbose:
+        print("trace: " + json.dumps({"spans": snap["spans"],
+                                      "counts": snap["counts"]}),
+              file=sys.stderr)
 
 
 def _mh_context():

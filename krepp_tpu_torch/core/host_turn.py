@@ -11,6 +11,9 @@ own card (`host_wait`, `host_int`: the host syncs of a step), when another
 cell's thread launches its ops. The cards run at once; the host launches one
 cell's ops at a time, as the interpreter lock allows anyway. Off a cell's
 thread (the single-device engine, the in-turn order) both are a plain wait.
+
+Every host sync inside a step passes here: each call is one sync point,
+counted (`host_syncs`) and timed (span `sync`) by core/trace.py.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import contextlib
 import threading
 
 import torch
+
+from . import trace
 
 _local = threading.local()
 
@@ -35,12 +40,14 @@ def host_turn(lock: threading.Lock):
             _local.turn = None
 
 
-def host_wait(device: torch.device) -> None:
-    """On a thread that holds a turn: wait for `device`'s stream with the
-    turn given up, then take it back (a host sync after this finds the
-    card idle). Elsewhere nothing."""
+def _drain(device: torch.device) -> None:
+    """Wait for `device`'s current stream; on a thread that holds a turn,
+    with the turn given up meanwhile."""
+    if device.type != "cuda":
+        return
     turn = getattr(_local, "turn", None)
-    if turn is None or device.type != "cuda":
+    if turn is None:
+        torch.cuda.current_stream(device).synchronize()
         return
     turn.release()
     try:
@@ -49,7 +56,20 @@ def host_wait(device: torch.device) -> None:
         turn.acquire()
 
 
+def host_wait(device: torch.device) -> None:
+    """Wait for `device`'s stream (the card drains; a host sync after this
+    finds it idle): on a thread that holds a turn, with the turn given up
+    meanwhile. Put before an op that syncs the host anyway (a mask index),
+    it costs nothing. Nothing on the host."""
+    with trace.span("sync"):
+        trace.count("host_syncs")
+        _drain(device)
+
+
 def host_int(t: torch.Tensor) -> int:
-    """int(t) of a one-element tensor, its card waited for by host_wait."""
-    host_wait(t.device)
-    return int(t)
+    """int(t) of a one-element tensor, its card waited for as by
+    host_wait (one sync point)."""
+    with trace.span("sync"):
+        trace.count("host_syncs")
+        _drain(t.device)
+        return int(t)

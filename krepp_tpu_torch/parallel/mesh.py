@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core import trace
 from ..core.host_turn import host_turn
 from ..index.index import DeviceIndex
 from ..query import engine as qengine
@@ -276,12 +277,15 @@ class ShardedQueryEngine(QueryEngine):
         host thread of its own, all at once, or with concurrent=False one
         after the other on this thread. Returns the results in job order
         once every job has ended; the first failed job's exception (in job
-        order) is then raised here, with a note naming its label."""
+        order) is then raised here, with a note naming its label. A job's
+        spans belong to this thread's current batch (core/trace.py)."""
+        bid = trace.current_batch()
+
         def call(job):
             label, dev, fn = job
             try:
                 with (torch.cuda.device(dev) if dev.type == "cuda"
-                      else contextlib.nullcontext()):
+                      else contextlib.nullcontext()), trace.batch(bid):
                     return fn()
             except Exception as exc:
                 exc.add_note(f"in {label}")
@@ -330,10 +334,11 @@ class ShardedQueryEngine(QueryEngine):
         """Strand hashes of a data row's reads on a shard's device, routed
         to the shard: (res2, mine, sidx, hrow, onmers)."""
         dev = t["dev"]
-        rix2, res2, valid, onmers = self._strand_hashes(codes.to(dev),
-                                                        lengths.to(dev))
-        urow, resident = self._rowmap(dev)(rix2, valid[None])
-        mine, sidx, hrow = self._shard_route(urow, resident, t)
+        with trace.span("hash"):
+            rix2, res2, valid, onmers = self._strand_hashes(codes.to(dev),
+                                                            lengths.to(dev))
+            urow, resident = self._rowmap(dev)(rix2, valid[None])
+            mine, sidx, hrow = self._shard_route(urow, resident, t)
         return res2, mine, sidx, hrow, onmers
 
     @_taking_turns
@@ -342,6 +347,12 @@ class ShardedQueryEngine(QueryEngine):
         minall [2, B], onmers [B], overflow int32 [1]) on its device."""
         res2, mine, sidx, hrow, onmers = self._shard_hashes(t, codes,
                                                             lengths)
+        with trace.span("probe"):
+            return self._shard_probe_body(t, res2, mine, sidx, hrow, onmers,
+                                          exact, tier)
+
+    def _shard_probe_body(self, t, res2, mine, sidx, hrow, onmers,
+                          exact: bool, tier: int):
         th, S, W = self.th, self.S, self.W
         mb = self.di.max_bucket
         _, B, P = sidx.shape
@@ -401,13 +412,15 @@ class ShardedQueryEngine(QueryEngine):
         partials = self._run_cells(codes.shape[0], lambda t, sl: (
             self._shard_probe(t, codes[sl], lengths[sl], exact, tier)))
         rows = {}
-        for g, parts in partials.items():
-            hist = self._reduce(g, [p[0] for p in parts], "sum")
-            minall = self._reduce(g, [p[1] for p in parts], "min")
-            ov = self._reduce(g, [p[3] for p in parts], "max")
-            rows[g] = (hist[0], hist[1], minall[0], minall[1],
-                       parts[0][2].to(self.device), ov)
-        hist_or, hist_rc, min_or, min_rc, onmers, ov = self._gather_rows(rows)
+        with trace.span("probe"):
+            for g, parts in partials.items():
+                hist = self._reduce(g, [p[0] for p in parts], "sum")
+                minall = self._reduce(g, [p[1] for p in parts], "min")
+                ov = self._reduce(g, [p[3] for p in parts], "max")
+                rows[g] = (hist[0], hist[1], minall[0], minall[1],
+                           parts[0][2].to(self.device), ov)
+            hist_or, hist_rc, min_or, min_rc, onmers, ov = self._gather_rows(
+                rows)
         return hist_or, hist_rc, min_or, min_rc, onmers, ov.amax() > 0
 
     # ---------------------------------------------- sharded event lanes
@@ -439,16 +452,19 @@ class ShardedQueryEngine(QueryEngine):
             t, codes[sl], lengths[sl], etier))
         # each row's partials merged on the row's first card, in cell order
         merged = {}
-        for g, parts in partials.items():
-            dev = parts[0][0].device
-            merged[g] = (dev,) + tuple(
-                self._reduce(g, [p[i] for p in parts], op, dev)
-                for i, op in enumerate(("cat", "cat", "cat", "min", "max")))
+        with trace.span("lanes"):
+            for g, parts in partials.items():
+                dev = parts[0][0].device
+                merged[g] = (dev,) + tuple(
+                    self._reduce(g, [p[i] for p in parts], op, dev)
+                    for i, op in enumerate(("cat", "cat", "cat", "min",
+                                            "max")))
 
         def row_stage2(g, dev, nb, leaf, hist, minall, ov):
             with self._host_turn():
-                idx, lv, h_or, h_rc, lane_over = self._event_lane_join(
-                    nb, leaf, hist, Kl, Bl)
+                with trace.span("lanes"):
+                    idx, lv, h_or, h_rc, lane_over = self._event_lane_join(
+                        nb, leaf, hist, Kl, Bl)
                 onmers = partials[g][0][5]
                 L = self._stage2_core(idx, lv, h_or, h_rc, minall[:Bl],
                                       minall[Bl:], onmers, leaf_ok.to(dev),
@@ -463,14 +479,15 @@ class ShardedQueryEngine(QueryEngine):
         lanes = self._run([(f"stage 2 of data row {g} on {m[0]}", m[0],
                             lambda g=g, m=m: row_stage2(g, *m))
                            for g, m in merged.items()])
-        rows = {g: tuple(x.to(self.device) for x in out)
-                for g, out in zip(merged, lanes)}
-        out = self._gather_rows(rows)
-        L = dict(zip(LANE_KEYS, out))
-        safe = torch.clamp(L["idx"], max=B * S - 1).to(torch.int64)
-        L["lb"] = safe // S
-        L["ls"] = safe - L["lb"] * S
-        L["lane_over"] = out[-2].amax() > 0
+        with trace.span("lanes"):
+            rows = {g: tuple(x.to(self.device) for x in out)
+                    for g, out in zip(merged, lanes)}
+            out = self._gather_rows(rows)
+            L = dict(zip(LANE_KEYS, out))
+            safe = torch.clamp(L["idx"], max=B * S - 1).to(torch.int64)
+            L["lb"] = safe // S
+            L["ls"] = safe - L["lb"] * S
+            L["lane_over"] = out[-2].amax() > 0
         return L, out[-3], out[-1].amax() > 0
 
     @_taking_turns
@@ -481,11 +498,12 @@ class ShardedQueryEngine(QueryEngine):
                                                             lengths)
         _, Bl, P = sidx.shape
         E, KH, CAP_L = self._event_caps(Bl, P, etier)
-        nb, leaf, hist, minall, ov = event_probe_lanes(
-            t["slots"], t["enc_se"], t["row_start"], t["leaf_off"],
-            t["leaf_slots"], sidx, hrow, mine, res2, self.th, self.C0,
-            self.S, self.di.max_bucket, E, KH, CAP_L, heavy_tab=None,
-            KR=self._shard_resident_cap(2 * Bl * P, etier))
+        with trace.span("probe"):
+            nb, leaf, hist, minall, ov = event_probe_lanes(
+                t["slots"], t["enc_se"], t["row_start"], t["leaf_off"],
+                t["leaf_slots"], sidx, hrow, mine, res2, self.th, self.C0,
+                self.S, self.di.max_bucket, E, KH, CAP_L, heavy_tab=None,
+                KR=self._shard_resident_cap(2 * Bl * P, etier))
         return nb, leaf, hist, minall, ov.to(torch.int32).reshape(1), onmers
 
     # --------------------------------------------------------- collectives

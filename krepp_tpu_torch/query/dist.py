@@ -19,6 +19,7 @@ import numpy as np
 
 from ..reports import dist_header, fmt5, fmt5_array
 
+from ..core import trace
 from ..core.codec import pad_codes_batch
 from ..index.index import DeviceIndex
 from ..io.fastx import QueryBatcher
@@ -61,10 +62,11 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
     flavor and mask words (hflavor, W) and the overflow re-runs
     ("escalations") of each batch."""
     cfg = cfg or DistConfig()
-    engine = engine_factory(dindex, cfg.hdist_th) if engine_factory else \
-        QueryEngine(dindex, cfg.hdist_th, device=device)
-    out.write(dist_header(invocation, cfg.summarize))
-    leaf_names = [dindex.ftree.names[se] for se in dindex.leaf_ses]
+    with trace.batch(None), trace.span("entry"):
+        engine = engine_factory(dindex, cfg.hdist_th) if engine_factory \
+            else QueryEngine(dindex, cfg.hdist_th, device=device)
+        out.write(dist_header(invocation, cfg.summarize))
+        leaf_names = [dindex.ftree.names[se] for se in dindex.leaf_ses]
     total = 0
     wcount = np.zeros(len(leaf_names))
     escalations: List[int] = []
@@ -75,45 +77,69 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
     out_mode = "dist_ratio" if need_ratio else "dist"
 
     def flush_one():
-        names_b, lengths_b, codes_b, dev = pending.popleft()
-        before = engine.escalations
-        lr = engine.fetch_leaf_stage(dev, lengths_b, codes=codes_b,
-                                     out_mode=out_mode)
-        escalations.append(engine.escalations - before)
-        if need_ratio:
-            lr.ratio = engine.compute_ratio_host(lr)
-        if len(lr.lengths) != len(names_b):   # drop batch padding reads
-            lr = _slice_results(lr, 0, len(names_b))
-        if cfg.emit_slice:
-            rank, nranks = cfg.emit_slice
-            B = len(names_b)
-            lo, hi = rank * B // nranks, (rank + 1) * B // nranks
-            lr = _slice_results(lr, lo, hi)
-            names_b = names_b[lo:hi]
-        _report_batch(lr, names_b, leaf_names, cfg, out, wcount)
+        names_b, lengths_b, codes_b, dev, bid = pending.popleft()
+        with trace.batch(bid):
+            before = engine.escalations
+            lr = engine.fetch_leaf_stage(dev, lengths_b, codes=codes_b,
+                                         out_mode=out_mode)
+            escalations.append(engine.escalations - before)
+            if need_ratio:
+                lr.ratio = engine.compute_ratio_host(lr)
+            if len(lr.lengths) != len(names_b):   # drop batch padding reads
+                lr = _slice_results(lr, 0, len(names_b))
+            if cfg.emit_slice:
+                rank, nranks = cfg.emit_slice
+                B = len(names_b)
+                lo, hi = rank * B // nranks, (rank + 1) * B // nranks
+                lr = _slice_results(lr, lo, hi)
+                names_b = names_b[lo:hi]
+            _report_batch(lr, names_b, leaf_names, cfg, out, wcount)
 
     batch_bp = min(cfg.batch_bp, engine.suggested_batch_reads() * 150)
     mult = getattr(engine, "n_data", 1)
-    for names, seqs in QueryBatcher(query_path, bp_limit=batch_bp):
-        total += len(names)
-        codes, lengths = pad_codes_batch(
-            seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
-        codes, lengths = _pad_batch(codes, lengths, mult)
+    batches = iter(QueryBatcher(query_path, bp_limit=batch_bp))
+    while True:
+        with trace.span("prep"):
+            batch = next(batches, None)
+            if batch is None:
+                break
+            names, seqs = batch
+            total += len(names)
+            codes, lengths = pad_codes_batch(
+                seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
+            note_batch(lengths, dindex.lsh.k)
+            codes, lengths = _pad_batch(codes, lengths, mult)
         dev = engine.run_leaf_stage_async(codes, lengths, out_mode=out_mode)
-        pending.append((names, lengths, codes, dev))
+        pending.append((names, lengths, codes, dev, trace.current_batch()))
         if len(pending) >= IN_FLIGHT:
             flush_one()
     while pending:
         flush_one()
     if cfg.summarize:
-        twcount = wcount.sum()
-        for slot in np.flatnonzero(wcount):
-            w = wcount[slot]
-            out.write(f"{leaf_names[slot]}\t{fmt5(w)}\t{fmt5(w / twcount)}\n")
+        with trace.batch(None), trace.span("report"):
+            twcount = wcount.sum()
+            rows = np.flatnonzero(wcount)
+            for slot in rows:
+                w = wcount[slot]
+                out.write(f"{leaf_names[slot]}\t{fmt5(w)}\t"
+                          f"{fmt5(w / twcount)}\n")
+            trace.count("rows", len(rows))
     if stats is not None:
         stats.update(mode=engine.mode, hflavor=engine.hflavor, W=engine.W,
                      batches=len(escalations), escalations=escalations)
     return total
+
+
+def note_batch(lengths: np.ndarray, k: int) -> None:
+    """With tracing on: number a new batch of reads of `lengths` (before
+    batch padding) and count it, its reads and their k-mer positions."""
+    if trace.enabled():
+        trace.new_batch()
+        trace.count("batches")
+        trace.count("reads", len(lengths))
+        trace.count("kmer_positions",
+                    int(np.maximum(lengths.astype(np.int64) - k + 1,
+                                   0).sum()))
 
 
 def _pad_batch(codes: Optional[np.ndarray], lengths: np.ndarray, mult: int):
@@ -145,6 +171,14 @@ def _report_batch(lr, names: List[str], leaf_names: List[str],
                   cfg: DistConfig, out: TextIO, wcount: np.ndarray):
     """Bulk row emission: one numpy pass + one write per batch, rows in
     (read-major, slot-minor) order (ref: src/query.cpp:158-196)."""
+    with trace.span("report"):
+        trace.count("rows", _report_rows(lr, names, leaf_names, cfg, out,
+                                         wcount))
+
+
+def _report_rows(lr, names: List[str], leaf_names: List[str],
+                 cfg: DistConfig, out: TextIO, wcount: np.ndarray) -> int:
+    """_report_batch's body; returns the rows written."""
     B, S = lr.present.shape
     dist_max = cfg.dist_max
     no_dmax = math.isnan(dist_max)
@@ -159,7 +193,7 @@ def _report_batch(lr, names: List[str], leaf_names: List[str],
         np.divide(1.0, cnt, out=w, where=cnt > 0)
         bs, ss = np.nonzero(sel)
         np.add.at(wcount, ss, w[bs])
-        return
+        return 0
     leaf_a = np.asarray(leaf_names, dtype=object)
     na = ~lr.present.any(axis=1)
     if not no_dmax:
@@ -184,3 +218,4 @@ def _report_batch(lr, names: List[str], leaf_names: List[str],
         order = np.argsort(np.concatenate([bs, na_b]), kind="stable")
         rows = np.concatenate([rows, na_rows])[order]
     out.write("".join(rows.tolist()))
+    return len(rows)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import codec
+from ..core import codec, trace
 from ..core.compact import compact_mask_indices, compact_mask_indices_strided
 from ..core.host_turn import host_int, host_wait
 from ..core.llh import F, brent_llh, make_llh, make_llh_np
@@ -143,21 +143,39 @@ class _Pending:
 
     On the card the device-to-host copies are issued non-blocking (into
     pinned host memory) right after the step is enqueued; `get` waits on an
-    event recorded behind them."""
+    event recorded behind them. With tracing on, the step's device counts
+    (core/trace.count_device) ride along as one more output, added to the
+    counters by `get`."""
 
     def __init__(self, outs, device: torch.device):
         self.event = None
-        if device.type == "cuda":
-            self.host = tuple(t.to("cpu", non_blocking=True) for t in outs)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = tuple(outs)
+        counts = trace.take_device(device)
+        with trace.span("outputs"):
+            self.names = None
+            if counts is not None:
+                self.names, t = counts
+                outs = tuple(outs) + (t,)
+            if device.type == "cuda":
+                self.host = tuple(t.to("cpu", non_blocking=True)
+                                  for t in outs)
+                self.event = torch.cuda.Event()
+                self.event.record()
+                if trace.enabled():
+                    trace.count("d2h_bytes",
+                                sum(t.nbytes for t in self.host))
+            else:
+                self.host = tuple(outs)
 
     def get(self):
-        if self.event is not None:
-            self.event.synchronize()
-        return tuple(t.numpy() for t in self.host)
+        with trace.span("wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            host = tuple(t.numpy() for t in self.host)
+        if self.names is None:
+            return host
+        for name, v in zip(self.names, host[-1].tolist()):
+            trace.count(name, v)
+        return host[:-1]
 
 
 class QueryEngine:
@@ -495,30 +513,34 @@ class QueryEngine:
         rescan). Per-(read, position, leaf) minimum Hamming distance
         histogram (ref: src/query.hpp:153-176)."""
         slots_d, enc_se, row_start, row_ids, mask_tab, heavy_tab = tables
-        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
-        urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
-        sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
-        hist, minall, overflow = self._hybrid_core(
-            slots_d, enc_se, row_start, mask_tab, sidx, hrow, resident,
-            res2, self.di.max_bucket, tier, heavy_tab)
-        B = codes.shape[0]
-        hist = hist.reshape(2, B, self.S, self.th + 1)
-        minall = minall.reshape(2, B)
+        with trace.span("hash"):
+            rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+            urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
+            sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
+        with trace.span("probe"):
+            hist, minall, overflow = self._hybrid_core(
+                slots_d, enc_se, row_start, mask_tab, sidx, hrow, resident,
+                res2, self.di.max_bucket, tier, heavy_tab)
+            B = codes.shape[0]
+            hist = hist.reshape(2, B, self.S, self.th + 1)
+            minall = minall.reshape(2, B)
         return (hist[0], hist[1], minall[0], minall[1], onmers, overflow)
 
     def _probe_csr(self, tables, codes, lengths):
         """CSR-mode probe, strand by strand through the top-k bounded scan
         (ref: engine.py _strand_probe)."""
         enc_se, row_start, row_ids, mask_tab = tables
-        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+        with trace.span("hash"):
+            rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
         outs = []
-        for strand in range(2):
-            urow, resident = self._rows(rix2[strand], valid)
-            start, cnt = _csr_bucket_slices(row_start, row_ids, urow,
-                                            resident)
-            outs.append(probe_strand(
-                enc_se, mask_tab, self._expand, start, cnt, res2[strand],
-                self.th, self.W, self.S, self.di.max_bucket))
+        with trace.span("probe"):
+            for strand in range(2):
+                urow, resident = self._rows(rix2[strand], valid)
+                start, cnt = _csr_bucket_slices(row_start, row_ids, urow,
+                                                resident)
+                outs.append(probe_strand(
+                    enc_se, mask_tab, self._expand, start, cnt, res2[strand],
+                    self.th, self.W, self.S, self.di.max_bucket))
         (hist_or, min_or, ov_or), (hist_rc, min_rc, ov_rc) = outs
         return hist_or, hist_rc, min_or, min_rc, onmers, ov_or | ov_rc
 
@@ -526,18 +548,21 @@ class QueryEngine:
         """Exact full-depth CSR scan of every probe: CSR mode's exact run
         and the hybrid overflow fallback. tables: the CSR tables."""
         enc_se, row_start, row_ids, mask_tab = tables
-        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
-        urow, resident = self._rows(rix2, valid[None])
-        start, cnt = _csr_bucket_slices(row_start, row_ids, urow, resident)
+        with trace.span("hash"):
+            rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+            urow, resident = self._rows(rix2, valid[None])
+            start, cnt = _csr_bucket_slices(row_start, row_ids, urow,
+                                            resident)
         B = codes.shape[0]
         P = urow.shape[2]
         N = 2 * B
-        hist, minall = probe_strand_full(
-            enc_se, mask_tab, self._expand, start.reshape(N, P),
-            cnt.reshape(N, P), res2.reshape(N, P),
-            self.th, self.W, self.S, self.di.max_bucket)
-        hist = hist.reshape(2, B, self.S, self.th + 1)
-        minall = minall.reshape(2, B)
+        with trace.span("probe"):
+            hist, minall = probe_strand_full(
+                enc_se, mask_tab, self._expand, start.reshape(N, P),
+                cnt.reshape(N, P), res2.reshape(N, P),
+                self.th, self.W, self.S, self.di.max_bucket)
+            hist = hist.reshape(2, B, self.S, self.th + 1)
+            minall = minall.reshape(2, B)
         return (hist[0], hist[1], minall[0], minall[1], onmers,
                 torch.zeros((), dtype=torch.bool, device=codes.device))
 
@@ -546,17 +571,19 @@ class QueryEngine:
         modes, with a [2B, S, X] histogram; exact up to its caps."""
         (slots_d, enc_se, row_start, row_ids, leaf_off, leaf_slots,
          heavy_tab) = tables
-        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
-        urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
-        sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
+        with trace.span("hash"):
+            rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+            urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
+            sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
         B, P = codes.shape[0], urow.shape[2]
         E, KH, CAP_L = self._event_caps(B, P, tier)
-        hist, minall, ov = event_probe(
-            slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
-            resident, res2, self.th, self.C0, self.S, self.di.max_bucket, E,
-            KH, CAP_L, heavy_tab=heavy_tab)
-        hist = hist.reshape(2, B, self.S, self.th + 1)
-        minall = minall.reshape(2, B)
+        with trace.span("probe"):
+            hist, minall, ov = event_probe(
+                slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
+                resident, res2, self.th, self.C0, self.S, self.di.max_bucket,
+                E, KH, CAP_L, heavy_tab=heavy_tab)
+            hist = hist.reshape(2, B, self.S, self.th + 1)
+            minall = minall.reshape(2, B)
         return (hist[0], hist[1], minall[0], minall[1], onmers, ov)
 
     def _probe_impl(self, tables, codes, lengths, exact: bool = False,
@@ -654,22 +681,25 @@ class QueryEngine:
         (fetch_prefetched)."""
         (slots_d, enc_se, row_start, row_ids, leaf_off, leaf_slots,
          heavy_tab) = tables
-        rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
-        urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
-        sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
+        with trace.span("hash"):
+            rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
+            urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
+            sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
         B, P = codes.shape[0], urow.shape[2]
         etier = max(tier, 2) if exact else tier
         E, KH, CAP_L = self._event_caps(B, P, etier)
-        nb_lane, leaf_lane, hist_lanes, minall, ov = event_probe_lanes(
-            slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
-            resident, res2, self.th, self.C0, self.S, self.di.max_bucket, E,
-            KH, CAP_L, heavy_tab=heavy_tab,
-            KR=self._resident_cap(2 * B * P, etier))
-        minall = minall.reshape(2, B)
+        with trace.span("probe"):
+            nb_lane, leaf_lane, hist_lanes, minall, ov = event_probe_lanes(
+                slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
+                resident, res2, self.th, self.C0, self.S, self.di.max_bucket,
+                E, KH, CAP_L, heavy_tab=heavy_tab,
+                KR=self._resident_cap(2 * B * P, etier))
+            minall = minall.reshape(2, B)
         BS = B * self.S
         K = BS if lane_cap is None else min(BS, lane_cap)
-        idx, lv, h_or, h_rc, lane_over = self._event_lane_join(
-            nb_lane, leaf_lane, hist_lanes, K, B)
+        with trace.span("lanes"):
+            idx, lv, h_or, h_rc, lane_over = self._event_lane_join(
+                nb_lane, leaf_lane, hist_lanes, K, B)
         L = self._stage2_core(idx, lv, h_or, h_rc, minall[0], minall[1],
                               onmers, leaf_ok, lane_over)
         return L, onmers, ov
@@ -701,13 +731,14 @@ class QueryEngine:
         S = self.S
         BS = B * S
         X = self.th + 1
-        anym = ((hist_or.sum(dim=-1) > 0) | (hist_rc.sum(dim=-1) > 0))
-        idx, nset = compact_mask_indices(anym.reshape(-1), K)
-        lane_over = nset > K
-        lv = idx < BS
-        safe = torch.clamp(idx, max=BS - 1).to(torch.int64)
-        h_or = torch.where(lv[:, None], hist_or.reshape(BS, X)[safe], 0)
-        h_rc = torch.where(lv[:, None], hist_rc.reshape(BS, X)[safe], 0)
+        with trace.span("lanes"):
+            anym = ((hist_or.sum(dim=-1) > 0) | (hist_rc.sum(dim=-1) > 0))
+            idx, nset = compact_mask_indices(anym.reshape(-1), K)
+            lane_over = nset > K
+            lv = idx < BS
+            safe = torch.clamp(idx, max=BS - 1).to(torch.int64)
+            h_or = torch.where(lv[:, None], hist_or.reshape(BS, X)[safe], 0)
+            h_rc = torch.where(lv[:, None], hist_rc.reshape(BS, X)[safe], 0)
         return self._stage2_core(idx, lv, h_or, h_rc, minall_or, minall_rc,
                                  onmers, leaf_ok, lane_over)
 
@@ -716,7 +747,20 @@ class QueryEngine:
         """Lane-form stage 2 on pre-extracted (read, leaf) lanes.
 
         idx: [K] int32 ascending b*S+s keys (sentinel B*S for empty);
-        h_or/h_rc: [K, X] int32 per-strand first-match histograms."""
+        h_or/h_rc: [K, X] int32 per-strand first-match histograms. With
+        tracing on, counts its present lanes (`stage2_lanes`) and the
+        matched positions of each read's closest leaf
+        (`matched_positions`) on the card."""
+        with trace.span("stage2"):
+            L = self._stage2_body(idx, lv, h_or, h_rc, minall_or, minall_rc,
+                                  onmers, leaf_ok, lane_over)
+            if trace.enabled():
+                trace.count_device("stage2_lanes", L["present_l"].sum())
+                trace.count_device("matched_positions", L["hist_c"].sum())
+        return L
+
+    def _stage2_body(self, idx, lv, h_or, h_rc, minall_or, minall_rc,
+                     onmers, leaf_ok, lane_over):
         th = self.th
         X = th + 1
         dev = h_or.device
@@ -869,7 +913,8 @@ class QueryEngine:
         output set: "dist" (what report_distances consumes), "dist_ratio"
         (+ the closest-candidate summary) or "full" (per-leaf state)."""
         L = packed.shape[1] * 16
-        codes = codec.unpack_codes(packed, lengths, L, vbits)
+        with trace.span("hash"):
+            codes = codec.unpack_codes(packed, lengths, L, vbits)
         B = codes.shape[0]
         S = self.S
         base_cap = self._lane_cap_override or max(8 * B, 4096)
@@ -877,13 +922,19 @@ class QueryEngine:
             B * S, base_cap << (2 * tier))
         lanes, onmers, probe_ov = self._probe_and_lanes(
             tables, codes, lengths, leaf_ok, lane_cap, exact, tier)
+        with trace.span("outputs"):
+            return self._outputs(lanes, onmers, probe_ov, B, out_mode)
+
+    def _outputs(self, lanes, onmers, probe_ov, B: int, out_mode: str):
+        """The step's output set of `_full_impl` from its stage-2 lanes."""
+        S = self.S
         # overflow bit-flag word: bit 0 = probe capacity (heavy tail),
         # bit 1 = stage-2 lane cap; they escalate independently
         overflow = (probe_ov.to(torch.int32)
                     | lanes["lane_over"].to(torch.int32) * 2)
         if out_mode in ("dist", "dist_ratio"):
             present = torch.zeros((B * S + 1,), dtype=torch.bool,
-                                  device=codes.device)
+                                  device=onmers.device)
             present[lanes["idx"].to(torch.int64)] = lanes["present_l"]
             bits = codec.pack_bits_device(present[:B * S].reshape(B, S))
             # present-lane distances in index order: the first n entries
@@ -919,14 +970,17 @@ class QueryEngine:
         None, lengths int32, leaf_ok bool), the inputs of a step. On the
         card the copies go through pinned memory, non-blocking."""
         dev = self.device
-        if leaf_ok is None:
-            leaf_ok = np.ones(self.S, bool)
-        packed, vbits = codec.pack_codes_host(np.asarray(codes),
-                                              np.asarray(lengths))
-        return (_upload(packed, dev),
-                None if vbits is None else _upload(vbits, dev),
-                _upload(np.asarray(lengths, np.int32), dev),
-                _upload(np.asarray(leaf_ok, bool), dev))
+        with trace.span("upload"):
+            if leaf_ok is None:
+                leaf_ok = np.ones(self.S, bool)
+            host = codec.pack_codes_host(np.asarray(codes),
+                                         np.asarray(lengths)) + (
+                np.asarray(lengths, np.int32), np.asarray(leaf_ok, bool))
+            if dev.type == "cuda" and trace.enabled():
+                trace.count("h2d_bytes", sum(a.nbytes for a in host
+                                             if a is not None))
+            return tuple(None if a is None else _upload(a, dev)
+                         for a in host)
 
     def run_step(self, step, codes, lengths, leaf_ok=None) -> _Pending:
         """Upload a batch and enqueue `step(tables, packed, vbits, lengths,
@@ -978,6 +1032,10 @@ class QueryEngine:
         exact CSR rescan (event mode: RuntimeError, its "exact" is only
         tier 2); lane overflow -> tiers, then uncapped lanes;
         compact-fetch overflow -> the full output set."""
+        with trace.span("fetch"):
+            return self._fetch(fetched, lengths, codes, leaf_ok, out_mode)
+
+    def _fetch(self, fetched, lengths, codes, leaf_ok, out_mode):
         ov_flags = int(np.max(fetched[-1]))
         over = ov_flags != 0
         fetch_over = (out_mode in ("dist", "dist_ratio")
@@ -1057,12 +1115,13 @@ class QueryEngine:
     def compute_ratio_host(self, lr: "LeafResults") -> np.ndarray:
         """Chi-square LRT of every leaf vs the closest, on the host
         (ref: src/query.cpp:420-424); used with out_mode='dist_ratio'."""
-        if not hasattr(self, "_llh_np"):
-            self._llh_np = make_llh_np(self.lsh.k, self.lsh.h, self.th)
-        return 2.0 * (self._llh_np(lr.d, lr.hist_closest[:, None, :],
-                                   lr.uc_closest[:, None],
-                                   lr.rho_closest[:, None])
-                      - lr.v_closest[:, None])
+        with trace.span("fetch"):
+            if not hasattr(self, "_llh_np"):
+                self._llh_np = make_llh_np(self.lsh.k, self.lsh.h, self.th)
+            return 2.0 * (self._llh_np(lr.d, lr.hist_closest[:, None, :],
+                                       lr.uc_closest[:, None],
+                                       lr.rho_closest[:, None])
+                          - lr.v_closest[:, None])
 
 
 class _RowMap:

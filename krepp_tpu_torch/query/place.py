@@ -34,13 +34,13 @@ import torch
 from ..reports import (begin_jplace, end_jplace, fmt5, fmt5_array,
                        place_header)
 
-from ..core import codec
+from ..core import codec, trace
 from ..core.compact import compact_mask_indices
 from ..core.llh import F, brent_llh, make_llh_np
 from ..index.index import DeviceIndex, PlacementView
 from ..io import native_report
 from ..io.fastx import QueryBatcher
-from .dist import IN_FLIGHT, _bucket_len, _pad_batch
+from .dist import IN_FLIGHT, _bucket_len, _pad_batch, note_batch
 from .engine import D_MAX, LeafResults, QueryEngine
 
 # Stage-3 formulation threshold: dense damping-weight einsums while the
@@ -154,6 +154,12 @@ class PlaceAggregator:
                   hist_c, uc_c, rho_c, v_c):
         """Returns per-(read, qnode): hist_q, uc_q, rho_q, d_q, v_q,
         support_q, leq_tau_q, chisq_q."""
+        with trace.span("stage3"):
+            return self._agg_body(present, hist, match, d, v, uc, onmers,
+                                  lengths, hist_c, uc_c, rho_c, v_c)
+
+    def _agg_body(self, present, hist, match, d, v, uc, onmers, lengths,
+                  hist_c, uc_c, rho_c, v_c):
         k = self.engine.lsh.k
         histW, matchW, support, rhoW = self._dense_ancestors(present, hist,
                                                              match)
@@ -222,10 +228,15 @@ class PlaceAggregator:
         same compacted candidate tuple as the lane path. The gates
         (support, structural, leq-tau, multi-read) apply densely; Brent
         runs only on the compacted candidate lanes."""
+        full = self.engine._full_impl(tables, packed, vbits, lengths, leaf_ok,
+                                      exact=tier > 0, out_mode="full",
+                                      tier=tier)
+        with trace.span("stage3"):
+            return self._dense_stage3(full, lengths, tier)
+
+    def _dense_stage3(self, full, lengths, tier: int):
         eng = self.engine
         X = eng.th + 1
-        full = eng._full_impl(tables, packed, vbits, lengths, leaf_ok,
-                              exact=tier > 0, out_mode="full", tier=tier)
         (present, hist_f, d_f, v_f, mc_f, uc_f, _rho, best_slot, best_d,
          hist_c, uc_c, rho_c, v_c, _ratio, onmers, flags) = full
         B = present.shape[0]
@@ -285,15 +296,20 @@ class PlaceAggregator:
         tier > 0 re-runs with 16x (tier 1) / 256x (tier 2) capacities and
         the exact full-depth probe; every cap carries an overflow flag."""
         eng = self.engine
-        dev = lengths.device
-        codes = codec.unpack_codes(packed, lengths, packed.shape[1] * 16,
-                                   vbits)
+        with trace.span("hash"):
+            codes = codec.unpack_codes(packed, lengths,
+                                       packed.shape[1] * 16, vbits)
         B = codes.shape[0]
-        S = eng.S
-        Qp = self.Q + 1
-        K = min(B * S, max(8 * B, 4096) << (4 * tier))
+        K = min(B * eng.S, max(8 * B, 4096) << (4 * tier))
         L, onmers, probe_ov = eng._probe_and_lanes(
             tables, codes, lengths, leaf_ok, K, tier > 0, tier)
+        with trace.span("stage3"):
+            return self._lane_stage3(L, onmers, probe_ov, lengths, B, tier)
+
+    def _lane_stage3(self, L, onmers, probe_ov, lengths, B: int, tier: int):
+        eng = self.engine
+        dev = lengths.device
+        Qp = self.Q + 1
         overflow = probe_ov | L["lane_over"]
         lb, ls, lv, pl = L["lb"], L["ls"], L["lv"], L["present_l"]
         seg_b = torch.where(lv, lb, B)
@@ -417,17 +433,18 @@ def run_place(dindex: DeviceIndex, query_path: str, out: TextIO,
     engine mode, hflavor, W, the stage-3 formulation and the tier re-runs
     of each batch."""
     cfg = cfg or PlaceConfig()
-    pv = dindex.placement_view(qtree)
-    engine = engine_factory(dindex, cfg.hdist_th) if engine_factory else \
-        QueryEngine(dindex, cfg.hdist_th, device=device)
-    agg = PlaceAggregator(engine, pv, cfg)
-    qflat = pv.qflat
-    tree_nwk = pv.qtree.newick(jplace=True, fixed5=True)
-    if cfg.summarize or cfg.tabular:
-        out.write(place_header(invocation, tree_nwk, cfg.summarize,
-                               cfg.tabular))
-    else:
-        out.write(begin_jplace())
+    with trace.batch(None), trace.span("entry"):
+        pv = dindex.placement_view(qtree)
+        engine = engine_factory(dindex, cfg.hdist_th) if engine_factory \
+            else QueryEngine(dindex, cfg.hdist_th, device=device)
+        agg = PlaceAggregator(engine, pv, cfg)
+        qflat = pv.qflat
+        tree_nwk = pv.qtree.newick(jplace=True, fixed5=True)
+        if cfg.summarize or cfg.tabular:
+            out.write(place_header(invocation, tree_nwk, cfg.summarize,
+                                   cfg.tabular))
+        else:
+            out.write(begin_jplace())
 
     leaf_ok = np.asarray(pv.leaf_qse > 0)
     total = 0
@@ -438,48 +455,62 @@ def run_place(dindex: DeviceIndex, query_path: str, out: TextIO,
 
     def flush_one():
         nonlocal has_previous
-        names_b, lengths_b, codes_b, dev = pending.popleft()
-        fetched = dev.get()
-        n = 0
-        for tier in (1, 2):
-            if not bool(np.any(fetched[-1])):
-                break
-            # heavy-tail / lane / candidate capacity overflow: escalate
-            # (16x per tier) with the exact full-depth probe
-            n += 1
-            fetched = agg.run_place_exact(codes_b, lengths_b, leaf_ok,
-                                          tier=tier).get()
-        else:
-            if bool(np.any(fetched[-1])):
-                raise RuntimeError("place capacity tiers exhausted; "
-                                   "reduce the batch size")
-        reruns.append(n)
-        has_previous = flush_place_batch(
-            agg, fetched, names_b, np.asarray(lengths_b), pv, cfg, out,
-            wcount, has_previous)
+        names_b, lengths_b, codes_b, dev, bid = pending.popleft()
+        with trace.batch(bid):
+            fetched = dev.get()
+            n = 0
+            for tier in (1, 2):
+                if not bool(np.any(fetched[-1])):
+                    break
+                # heavy-tail / lane / candidate capacity overflow: escalate
+                # (16x per tier) with the exact full-depth probe
+                n += 1
+                fetched = agg.run_place_exact(codes_b, lengths_b, leaf_ok,
+                                              tier=tier).get()
+            else:
+                if bool(np.any(fetched[-1])):
+                    raise RuntimeError("place capacity tiers exhausted; "
+                                       "reduce the batch size")
+            reruns.append(n)
+            trace.count("place_candidates", int(fetched[10]))
+            has_previous = flush_place_batch(
+                agg, fetched, names_b, np.asarray(lengths_b), pv, cfg, out,
+                wcount, has_previous)
 
     batch_bp = min(cfg.batch_bp,
                    engine.suggested_batch_reads(place=True) * 150)
     mult = getattr(engine, "n_data", 1)
-    for names, seqs in QueryBatcher(query_path, bp_limit=batch_bp):
-        total += len(names)
-        codes, lengths = codec.pad_codes_batch(
-            seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
-        codes, lengths = _pad_batch(codes, lengths, mult)
+    batches = iter(QueryBatcher(query_path, bp_limit=batch_bp))
+    while True:
+        with trace.span("prep"):
+            batch = next(batches, None)
+            if batch is None:
+                break
+            names, seqs = batch
+            total += len(names)
+            codes, lengths = codec.pad_codes_batch(
+                seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
+            note_batch(lengths, dindex.lsh.k)
+            codes, lengths = _pad_batch(codes, lengths, mult)
         pending.append((names, lengths, codes,
-                        agg.run_place_async(codes, lengths, leaf_ok)))
+                        agg.run_place_async(codes, lengths, leaf_ok),
+                        trace.current_batch()))
         if len(pending) >= IN_FLIGHT:
             flush_one()
     while pending:
         flush_one()
-    if cfg.summarize:
-        twcount = wcount.sum()
-        for q in np.flatnonzero(wcount):
-            w = wcount[q]
-            nm = qflat.names[q] if qflat.names[q] else "NA"
-            out.write(f"{nm}\t{q - 1}\t{fmt5(w)}\t{fmt5(w / twcount)}\n")
-    elif not cfg.tabular:
-        out.write(end_jplace(invocation, total, tree_nwk))
+    with trace.batch(None), trace.span("report"):
+        if cfg.summarize:
+            twcount = wcount.sum()
+            qs = np.flatnonzero(wcount)
+            for q in qs:
+                w = wcount[q]
+                nm = qflat.names[q] if qflat.names[q] else "NA"
+                out.write(f"{nm}\t{q - 1}\t{fmt5(w)}\t"
+                          f"{fmt5(w / twcount)}\n")
+            trace.count("rows", len(qs))
+        elif not cfg.tabular:
+            out.write(end_jplace(invocation, total, tree_nwk))
     if stats is not None:
         stats.update(mode=engine.mode, hflavor=engine.hflavor, W=engine.W,
                      formulation="dense" if agg.dense else "lanes",
@@ -493,6 +524,13 @@ def flush_place_batch(agg: PlaceAggregator, fetched, names_b, lengths_b,
     """Host half of one fused place batch: unpack the fetched tuple,
     chi-square the compacted candidate lanes, drop the batch's padding
     reads, keep this process's slice (cfg.emit_slice), emit the report."""
+    with trace.span("report"):
+        return _flush_place(agg, fetched, names_b, lengths_b, pv, cfg, out,
+                            wcount, has_previous)
+
+
+def _flush_place(agg, fetched, names_b, lengths_b, pv, cfg, out, wcount,
+                 has_previous):
     (n_pres, best_slot, best_d, hist_c, uc_c, rho_c, v_c,
      cand_key, cand_d, cand_v, n_cand, onmers, _ov) = fetched
     m = min(int(n_cand), len(cand_key))
@@ -597,6 +635,8 @@ def _report_batch(lr: LeafResults, n_pres: np.ndarray, names: List[str],
         cb, cq, cd, cv, cw = cb[pick], cq[pick], cd[pick], cv[pick], cw[pick]
         counts = np.minimum(counts, 1)
 
+    if not cfg.summarize:
+        trace.count("rows", len(sb) + len(cb))
     if cfg.summarize:
         np.add.at(wcount, s_q, 1.0)
         if cfg.multi:

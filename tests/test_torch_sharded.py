@@ -462,5 +462,6 @@ def test_host_wait_gives_the_turn_up_while_the_card_drains(monkeypatch):
         host_wait(card)
         assert turn.locked() and free == [True]
         assert host_int(torch.tensor([7])) == 7 and free == [True]
+    # off a turn it waits for the card too, holding no turn
     host_wait(card)
-    assert free == [True] and not turn.locked()
+    assert free == [True, True] and not turn.locked()
