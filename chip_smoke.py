@@ -1443,7 +1443,7 @@ def throughput(n: int, name: str, idx: str, fq: str, card: str,
     """dist or place reads/s (index loaded once, or `eng` given): a
     warm-up, then 3 timed passes, with the tier re-runs of each pass and
     the peak device memory (tables included); fetch_ms adds the host time
-    a batch spends in fetch_prefetched (the [B, S] host arrays of dist).
+    a batch spends in fetch_prefetched (dist: its host result lanes).
     Returns a function running one more pass (of `reads`, default fq; its
     report into the file `out`)."""
     import torch

@@ -113,6 +113,24 @@ def unpack_bits_host(words: np.ndarray, S: int) -> np.ndarray:
     return bits.reshape(w.shape[:-1] + (-1,))[..., :S].astype(bool)
 
 
+def set_bits_host(words: np.ndarray, S: int):
+    """(row, bit) int64 arrays of every set bit below S of pack_bits_device's
+    words [R, Wp], in row-major, bit-minor order: np.nonzero of
+    unpack_bits_host(words, S) without building it. Only the nonzero words
+    are expanded."""
+    w = np.ascontiguousarray(words).view(np.uint32)
+    Wp = w.shape[1]
+    nz = np.flatnonzero(w)
+    # bit j of a little-endian word is bit j % 8 of its byte j // 8
+    le = w.reshape(-1)[nz].astype("<u4", copy=False).view(np.uint8)
+    on = np.flatnonzero(np.unpackbits(le, bitorder="little"))
+    row, bit = np.divmod(nz[on >> 5] * 32 + (on & 31), Wp * 32)
+    if S < Wp * 32:
+        keep = bit < S
+        row, bit = row[keep], bit[keep]
+    return row, bit
+
+
 def window_valid(codes: torch.Tensor, k: int) -> torch.Tensor:
     """valid[..., t] = all of codes[..., t : t+k] are ACGT (code < 4).
 

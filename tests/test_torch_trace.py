@@ -1,10 +1,10 @@
 """The port's span-and-counter registry (krepp_tpu_torch/core/trace.py) on
 the host: off, it makes nothing; on, spans nest and count self time per
 thread, batches number their spans, the counters agree with what the run
-returned and with the full-mode outputs, spans annotate torch.profiler's
-trace, the sharded engine's cell threads keep their own stacks and count
-what the one-device engine counts, reports do not change, and the CLI's
---trace-dir writes spans.json."""
+returned and with the full-mode outputs, dist builds no [B, S] view, spans
+annotate torch.profiler's trace, the sharded engine's cell threads keep
+their own stacks and count what the one-device engine counts, reports do
+not change, and the CLI's --trace-dir writes spans.json."""
 
 import io
 import json
@@ -222,6 +222,36 @@ def test_dist_counters_agree_with_the_run(world, traced):
                                     "probe", "lanes", "stage2", "outputs",
                                     "wait", "fetch", "report"}
     assert snap["launches"].keys() == set(trace.KERNELS)
+
+
+DIST_OPTS = {"default": {}, "filter": dict(no_filter=False),
+             "summarize": dict(summarize=True)}
+
+
+@pytest.mark.parametrize("opts", sorted(DIST_OPTS))
+def test_dist_builds_no_dense_view(world, traced, opts):
+    """dist's fetch and report read the lanes alone: no [B, S] view is
+    built, and no batch re-runs."""
+    di, qpath, _ = world
+    _, text, stats = _dist(di, qpath, **DIST_OPTS[opts])
+    c = trace.snapshot()["counts"]
+    assert stats["escalations"] == [0, 0, 0]
+    assert c["stage2_lanes"] > 42 and "dense_views" not in c
+    assert c["rows"] > 0 and text.count("\n") > c["rows"]
+
+
+@pytest.mark.parametrize("opts", sorted(DIST_OPTS))
+def test_dist_rerun_writes_the_same_rows(world, traced, opts):
+    """A batch re-run in full (a one-lane stage-2 cap) gives its lanes
+    from the dense outputs: the same report."""
+    di, qpath, _ = world
+    want = _dist(di, qpath, **DIST_OPTS[opts])[1]
+    eng = QueryEngine(di, 4, device="cpu")
+    eng._lane_cap_override = 1
+    _, got, stats = _dist(di, qpath, engine=eng, **DIST_OPTS[opts])
+    assert min(stats["escalations"]) > 0
+    assert got == want and len(_data_lines(got)) > 0
+    assert "dense_views" not in trace.snapshot()["counts"]
 
 
 def test_place_counters_agree_with_the_run(world, traced):
