@@ -395,7 +395,9 @@ class QueryEngine:
                      resident, res2, max_bucket: int, tier: int = 0,
                      heavy_tab=None):
         """Hybrid probe body over pre-routed rows [2, B, P]. Returns
-        (hist [2B, S, X], minall [2B], overflow bool tensor)."""
+        (hist [2B, S, X], minall [2B], overflow bool tensor). With tracing
+        on, counts the probe positions sent to the heavy tail (resident,
+        bucket deeper than C0: `heavy_lanes`) on the card."""
         th, S, C0 = self.th, self.S, self.C0
         X = th + 1
         dev = res2.device
@@ -417,6 +419,7 @@ class QueryEngine:
         K, K2 = self._heavy_caps(Np, tier)
         hidx, nheavy, blk_over = compact_mask_indices_strided(
             heavy.reshape(Np), K)
+        trace.count_device("heavy_lanes", nheavy)
         overflow = (nheavy > K) | blk_over
         Kl = hidx.shape[0]
         # compacted indices ascend, so seg is sorted; hidx < Np marks live
