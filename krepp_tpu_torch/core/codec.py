@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..io.native_batch import ReadCodes, pad_rows
 from ..params import LSHParams
 
 # ASCII -> base code table (ref: src/common.cpp:10-14): ACGT/acgt -> 0..3,
@@ -44,10 +45,16 @@ def pad_codes_batch(code_list, pad_to: int | None = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Stack variable-length code vectors into [B, Lmax] padded with 4 (=N).
 
+    code_list is a list of arrays or a batch's `ReadCodes` (the query
+    batcher's reads), whose rows C fills, one copy a row.
     Returns (codes[B, Lmax] uint8, lengths[B] int32)."""
-    lengths = np.array([len(c) for c in code_list], dtype=np.int32)
+    batch = isinstance(code_list, ReadCodes)
+    lengths = (code_list.lengths if batch else
+               np.array([len(c) for c in code_list], dtype=np.int32))
     lmax = int(pad_to if pad_to is not None
                else (lengths.max() if len(lengths) else 1))
+    if batch:
+        return pad_rows(code_list, lmax), lengths
     out = np.full((len(code_list), lmax), 4, dtype=np.uint8)
     for i, c in enumerate(code_list):
         out[i, : len(c)] = c

@@ -1,15 +1,15 @@
 """FASTA/FASTQ streaming reader and query batcher.
 
-The port's own copy of the batcher and the URL inputs of
-krepp_tpu/io/fastx.py. kseq semantics (ref: src/kseq.h); gzip handled
-transparently; the batcher mirrors QSeq::read_next_batch
+The port's own copy of the URL inputs of krepp_tpu/io/fastx.py, and of its
+batcher's rule, read a batch at a time. kseq semantics (ref: src/kseq.h);
+gzip handled transparently; the batcher mirrors QSeq::read_next_batch
 (ref: src/rqseq.cpp:180-197). Records come through the port's native C
-reader (io/native.py, built at first use; a failed build raises), so the
-reference's Python reader is not carried over. A sequence path may be an
-http://, https:// or ftp:// URL (ref: src/rqseq.hpp:13-56 fetches them
-with libcurl): it is downloaded to a temporary file, which is read as a
-local file and removed once the read ends, finished, failed or closed
-early.
+readers (io/native.py record by record, io/native_batch.py a batch at a
+time; built at first use, a failed build raises), so the reference's
+Python reader is not carried over. A sequence path may be an http://,
+https:// or ftp:// URL (ref: src/rqseq.hpp:13-56 fetches them with
+libcurl): it is downloaded to a temporary file, which is read as a local
+file and removed once the read ends, finished, failed or closed early.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 
 from ..params import BATCH_BP_LIMIT
 from . import native
+from .native_batch import ReadCodes, read_batches
 
 _URL_RE = re.compile(r"^(?:https?|ftp)://\S+$")
 
@@ -58,15 +59,22 @@ def resolve_input(path: str) -> str:
             f"Failed to download {path}: {e} (offline environment?)") from e
 
 
-def _records(path: str) -> Iterator[Tuple[str, np.ndarray]]:
-    """The records of `path`; a URL's download is removed once the read
-    ends, finished, failed or closed early."""
+@contextlib.contextmanager
+def _local(path: str) -> Iterator[str]:
+    """A local path for `path`; a URL's download is removed once the
+    block ends, finished, failed or closed early."""
     local = resolve_input(path)
     try:
-        yield from native.read_fastx_native(local)
+        yield local
     finally:
         if local != path:
             os.unlink(local)
+
+
+def _records(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """The records of `path`."""
+    with _local(path) as local:
+        yield from native.read_fastx_native(local)
 
 
 def read_genome_codes(path: str) -> Iterator[np.ndarray]:
@@ -79,24 +87,15 @@ def read_genome_codes(path: str) -> Iterator[np.ndarray]:
 class QueryBatcher:
     """Batches query reads by cumulative bp (ref: src/rqseq.cpp:180-197).
 
-    Yields (names, per-read base-code arrays). A URL is downloaded once
-    an iteration."""
+    Yields (names, reads) a batch, each from one call of the native batch
+    reader (io/native_batch.py): `reads` is a `ReadCodes`, a sequence of
+    per-read base-code arrays over one arena that also holds the batch's
+    codes, offsets and lengths. A URL is downloaded once an iteration."""
 
     def __init__(self, path: str, bp_limit: int = BATCH_BP_LIMIT):
         self.path = path
         self.bp_limit = bp_limit
 
-    def __iter__(self) -> Iterator[Tuple[List[str], List[np.ndarray]]]:
-        names: List[str] = []
-        seqs: List[np.ndarray] = []
-        bpc = 0
-        with contextlib.closing(_records(self.path)) as records:
-            for name, codes in records:
-                names.append(name)
-                seqs.append(codes)
-                bpc += len(codes)
-                if bpc >= self.bp_limit:
-                    yield names, seqs
-                    names, seqs, bpc = [], [], 0
-        if names:
-            yield names, seqs
+    def __iter__(self) -> Iterator[Tuple[List[str], ReadCodes]]:
+        with _local(self.path) as local:
+            yield from read_batches(local, self.bp_limit)

@@ -105,7 +105,7 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
             names, seqs = batch
             total += len(names)
             codes, lengths = pad_codes_batch(
-                seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
+                seqs, pad_to=_bucket_len(int(seqs.lengths.max())))
             note_batch(lengths, dindex.lsh.k)
             codes, lengths = _pad_batch(codes, lengths, mult)
         dev = engine.run_leaf_stage_async(codes, lengths, out_mode=out_mode)

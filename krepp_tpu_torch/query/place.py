@@ -489,7 +489,7 @@ def run_place(dindex: DeviceIndex, query_path: str, out: TextIO,
             names, seqs = batch
             total += len(names)
             codes, lengths = codec.pad_codes_batch(
-                seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
+                seqs, pad_to=_bucket_len(int(seqs.lengths.max())))
             note_batch(lengths, dindex.lsh.k)
             codes, lengths = _pad_batch(codes, lengths, mult)
         pending.append((names, lengths, codes,

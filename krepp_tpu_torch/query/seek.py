@@ -30,7 +30,7 @@ def run_seek(sketch: DeviceSketch, query_path: str, out: TextIO,
         total += len(names)
         batches += 1
         codes, lengths = pad_codes_batch(
-            seqs, pad_to=_bucket_len(max(len(s) for s in seqs)))
+            seqs, pad_to=_bucket_len(int(seqs.lengths.max())))
         has, d = engine.run(codes, lengths)
         out.write("".join(
             f"{name}\t{fmt5(float(d[i]))}\n" if has[i] else f"{name}\tNaN\n"

@@ -224,6 +224,72 @@ def test_dist_counters_agree_with_the_run(world, traced):
     assert snap["launches"].keys() == set(trace.KERNELS)
 
 
+@pytest.mark.parametrize("reads_a_batch", [16, 14])
+def test_one_reader_call_a_batch(world, traced, reads_a_batch):
+    """The query batcher makes one native reader call a batch
+    (`fastx_batch_calls`), also where the input ends on a batch's last
+    read (42 reads in batches of 14)."""
+    di, qpath, _ = world
+    stats = {}
+    n = run_dist(di, qpath, io.StringIO(), "inv",
+                 DistConfig(batch_bp=reads_a_batch * 150), device="cpu",
+                 stats=stats)
+    c = trace.snapshot()["counts"]
+    assert n == 42 and stats["batches"] == 3
+    assert c["fastx_batch_calls"] == c["batches"] == stats["batches"]
+
+
+def test_benchmark_prep_wrappers_cover_the_reading_and_padding(world):
+    """portbench's `prep` wrappers (metrics/prep_ms_per_kread.SPANS)
+    install over dist and place, time every native batch read and every
+    padded batch inside a `prep` span, and leave the reports unchanged."""
+    from portbench.metrics import prep_ms_per_kread
+    from portbench.spans import Spans
+
+    from krepp_tpu_torch.core import codec
+    from krepp_tpu_torch.io import fastx
+    from krepp_tpu_torch.query import dist, place
+
+    di, qpath, _ = world
+
+    def runs():
+        return (_dist(di, qpath)[1], _place(di, qpath)[1],
+                _place(di, qpath, tabular=True)[1])
+
+    want = runs()
+    spans = Spans()
+    inside = []
+    read_batches, pad_rows = fastx.read_batches, codec.pad_rows
+
+    def reading(*args):
+        for item in read_batches(*args):
+            inside.append(("read", bool(spans._stack)))
+            yield item
+
+    def padding(*args):
+        inside.append(("pad", bool(spans._stack)))
+        return pad_rows(*args)
+
+    originals = [dist.QueryBatcher, place.QueryBatcher,
+                 dist.pad_codes_batch, codec.pad_codes_batch]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fastx, "read_batches", reading)
+        mp.setattr(codec, "pad_rows", padding)
+        spans.install(prep_ms_per_kread.SPANS)
+        try:
+            assert [dist.QueryBatcher, place.QueryBatcher,
+                    dist.pad_codes_batch, codec.pad_codes_batch] != originals
+            spans.active = True
+            got = runs()
+        finally:
+            spans.uninstall()
+    assert [dist.QueryBatcher, place.QueryBatcher, dist.pad_codes_batch,
+            codec.pad_codes_batch] == originals
+    assert got == want
+    assert spans.totals["prep"] > 0 and set(spans.totals) == {"prep"}
+    assert Counter(inside) == {("read", True): 9, ("pad", True): 9}
+
+
 DIST_OPTS = {"default": {}, "filter": dict(no_filter=False),
              "summarize": dict(summarize=True)}
 
