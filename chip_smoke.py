@@ -14,7 +14,8 @@ the probe microbenchmark, and checks them:
   2. build: compiles the CUDA kernels from the checkout, one nvcc per
      source, all started together, and prints ptxas's registers and spill
      bytes of each kernel (brent_llh has one for each th of 0..7 and a
-     generic one; the five C host libraries build at first use in the
+     generic one; the five C host libraries (winnower, jplace emitter,
+     radix sort, colorizer, FASTA/FASTQ reader) build at first use in the
      phases that need them);
   3. kernels vs plain: probe_hist_packed, probe_hist_tiles, hdist_chunk
      and dma_gather against their plain torch versions on the card,
@@ -150,9 +151,8 @@ the probe microbenchmark, and checks them:
  28. the sharded query engine in process, on the first 16,384 reads of
      base, wide and many (the worlds at full size, the reads cut): base
      dist (probe_hist_packed on the shard), wide dist and place
-     (probe_hist_tiles), many dist and place (event lanes across shards)
-     and many dist with KREPP_SHARD_DENSE=1 (the dense event probe), each
-     through the CLI with `--mesh 1x1` (the engine that runs its cells at
+     (probe_hist_tiles), many dist and place (event lanes across shards),
+     each through the CLI with `--mesh 1x1` (the engine that runs its cells at
      once, a host thread a cell) and byte for byte the one-device report
      of the same reads, run just before it; the first launch of each
      epilogue kernel on the shard (from the cell's thread) bit-equal to
@@ -376,15 +376,14 @@ HUGE_PROFILE_READS = 2048     # the profiled dist pass (place's: the first
 #                               1,024 reads; a profile's reading grows with
 #                               its launches, ~10^4 a place batch)
 HUGE_W = 313                  # mask words 10,000 leaves would take
-# (world, command, flags, epilogue kernel, engine mode, environment) of the
-# in-process `--mesh 1x1` runs of phase 28, each against one device
+# (world, command, flags, epilogue kernel, engine mode) of the in-process
+# `--mesh 1x1` runs of phase 28, each against one device
 MESH_RUNS = (
-    ("base", "dist", [], "probe_hist_packed", "hybrid", None),
-    ("wide", "dist", [], "probe_hist_tiles", "hybrid", None),
-    ("wide", "place", [], "probe_hist_tiles", "hybrid", None),
-    ("many", "dist", [], None, "event", None),
-    ("many", "dist", [], None, "event", {"KREPP_SHARD_DENSE": "1"}),
-    ("many", "place", [], None, "event", None),
+    ("base", "dist", [], "probe_hist_packed", "hybrid"),
+    ("wide", "dist", [], "probe_hist_tiles", "hybrid"),
+    ("wide", "place", [], "probe_hist_tiles", "hybrid"),
+    ("many", "dist", [], None, "event"),
+    ("many", "place", [], None, "event"),
 )
 # the runs of several processes (phases 29, 30), one batch each, so that
 # the rank files concatenated are the one-device report
@@ -1265,12 +1264,12 @@ def build_base(n: int, root: str, card: str):
 
     from krepp_tpu_torch.core import (native_colorize, native_extract,
                                       native_sort)
-    from krepp_tpu_torch.io import native as native_fastx
+    from krepp_tpu_torch.io import native_batch
     from krepp_tpu_torch.testing import make_world_codes, write_world_files
 
     # the C libraries `index` uses compile at first use: before the clock
     t0 = time.time()
-    for mod in (native_fastx, native_extract, native_sort, native_colorize):
+    for mod in (native_batch, native_extract, native_sort, native_colorize):
         mod.get_lib()
     phase(n, f"C libraries of the build (reader, winnower, sort, colorizer)"
              f" compiled or found in {time.time() - t0:.2f} s")
@@ -2151,26 +2150,17 @@ def paired_rates(n: int, world: str, idx: str, fq: str, card: str, meshes):
                   card)
 
 
-def card_run(n, label: str, argv, launched, total: dict, mode: str,
-             env=None) -> float:
-    """counted_run of `argv` on cuda with `env` set for the run only; the
-    engine mode must be `mode`. Prints the seconds (index load included),
-    the peak device memory and the launches; returns the seconds."""
+def card_run(n, label: str, argv, launched, total: dict,
+             mode: str) -> float:
+    """counted_run of `argv` on cuda; the engine mode must be `mode`.
+    Prints the seconds (index load included), the peak device memory and
+    the launches; returns the seconds."""
     import torch
 
-    saved = {k: os.environ.get(k) for k in env or {}}
-    os.environ.update(env or {})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    try:
-        stats, counts, dt = counted_run(argv + ["--device", "cuda"],
-                                        launched, total)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    stats, counts, dt = counted_run(argv + ["--device", "cuda"], launched,
+                                    total)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(stats["mode"] == mode, f"{label}: engine mode {stats['mode']}")
     phase(n, f"{label}: {dt:.2f} s with index load, peak device memory "
@@ -2215,17 +2205,16 @@ def mesh_in_process(n: int, root: str, worlds: dict, card: str, total: dict,
         return singles[key]
 
     keep = {"base": "probe_hist_packed", "wide": "probe_hist_tiles"}
-    for world, cmd, flags, launched, mode, env in MESH_RUNS:
+    for world, cmd, flags, launched, mode in MESH_RUNS:
         want, _ = single(world, cmd, flags, launched, mode)
         idx, fq = worlds[world]
-        out = want + ("_mesh_dense" if env else "_mesh")
-        label = f"{world} {cmd} --mesh 1x1" + "".join(
-            f" {k}={v}" for k, v in (env or {}).items())
+        out = want + "_mesh"
+        label = f"{world} {cmd} --mesh 1x1"
         name = keep.pop(world, None) if cmd == "dist" else None
         if name:
             getattr(kernels, name).keep_next = True
         card_run(n, label, [cmd, "-q", fq, "-i", idx, "-o", out, "--mesh",
-                            "1x1", *flags], launched, total, mode, env)
+                            "1x1", *flags], launched, total, mode)
         same_file(n, label, out, want)
         if name:
             kept_batch(name, f"{world} (--mesh 1x1, shard 0)", kstats,

@@ -7,11 +7,12 @@ torch.distributed) and its index-build path (the device winnower, sdust
 masking, the multi-device build) with torch ops on an explicit device, and
 hand-written CUDA kernels for Hopper (sm_90a) in place of the Pallas TPU
 kernels. It never imports JAX and nothing of `krepp_tpu`: the host modules
-it needs (params, reports, tree, index.colors, io.native, core.native_*,
-core.hll, core.sdust, core.stdrand; numpy and ctypes code) are its own
-copies under the same names, as is the numpy code of index.build/index/artifact, io.fastx,
-inspect and testing. The five C sources (winnower, jplace emitter, radix
-sort, colorizer, FASTA/FASTQ reader) are copies in csrc/, built at first
+it needs (params, reports, tree, index.colors, core.native_*, core.hll,
+core.sdust, core.stdrand; numpy and ctypes code) are its own copies under
+the same names, as is the numpy code of index.build/index/artifact,
+io.fastx, inspect and testing. Four C sources (winnower, jplace emitter,
+radix sort, colorizer) are copies in csrc/, and csrc/fastx_batch.c is its
+own FASTA/FASTQ reader (io/native_batch.py); all five are built at first
 use by the port's own loaders through csrc/build.cc_library.
 
 Conventions:

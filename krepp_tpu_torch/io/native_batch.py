@@ -4,8 +4,9 @@
 the batch's base codes in one arena with record offsets (`ReadCodes`) and
 its names, decoded and split once from the reader's '\\n'-joined block.
 `pad_rows` fills a [B, width] matrix from a `ReadCodes` with one C copy a
-row. The library is built at first use through csrc/build.cc_library, as
-io/native.py builds fastx.c; a missing compiler raises.
+row. io/fastx.read_genome_codes reads genomes through the same reader, a
+fixed number of bases a call. The library is built at first use through
+csrc/build.cc_library; a missing compiler raises.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import ctypes
 import os
 import threading
 from collections.abc import Sequence
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -73,6 +74,13 @@ def read_batches(path: str, bp_limit: int
     """Yield (names, ReadCodes) of each batch of `path`: a batch closes
     after the read that brings its bases to at least bp_limit, or at the
     end. Counts each native call as `fastx_batch_calls`."""
+    return _batches(path, bp_limit, "fastx_batch_calls")
+
+
+def _batches(path: str, bp_limit: int, counter: Optional[str]
+             ) -> Iterator[Tuple[List[str], ReadCodes]]:
+    """read_batches' body; each native call counted as `counter` (None:
+    not counted)."""
     lib = get_lib()
     h = lib.fxb_open(path.encode())
     if not h:
@@ -81,7 +89,8 @@ def read_batches(path: str, bp_limit: int
     try:
         while True:
             n = lib.fxb_next(h, bp_limit, info.ctypes.data_as(_P64))
-            trace.count("fastx_batch_calls")
+            if counter:
+                trace.count(counter)
             if n == -1:
                 raise ValueError("Unrecognised FASTA/FASTQ format")
             if n < 0:

@@ -8,7 +8,7 @@ exactly. A data row takes its slice of every read batch. Each shard
 carries the single-device engine's hybrid bucket-row table with the CSR
 tail (no heavy table, as the reference), so its probe launches the same
 epilogue kernels (`probe_hist_packed` / `probe_hist_tiles`) on the
-shard's device; CSR mode and the event probe shard the same way. Sparse
+shard's device; CSR mode and the event lanes shard the same way. Sparse
 row spaces (h >= 13) keep their nonempty-row ids per shard and route by a
 shard-local binary search.
 
@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import os
 import threading
 from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -61,10 +60,10 @@ from ..core.host_turn import host_turn
 from ..index.index import DeviceIndex
 from ..query import engine as qengine
 from ..query.bucket_scan import probe_strand, probe_strand_full
-from ..query.dist import _pad_batch, _slice_results
-from ..query.event_probe import event_probe, event_probe_lanes
+from ..query.event_probe import event_probe_lanes
 from ..query.engine import (DENSE_SLOTS, QueryEngine, _check_leaf_ranges,
-                            _i32, _RowMap, build_hybrid_slots, hybrid_flavor)
+                            _i32, _pad_batch, _RowMap, build_hybrid_slots,
+                            hybrid_flavor)
 from .build import mesh_devices
 
 # routing bound of shards past the last content row (int64: any row id of
@@ -138,10 +137,8 @@ class ShardedQueryEngine(QueryEngine):
     step runs on its own host thread (concurrent=True), or in turn on the
     calling thread (concurrent=False). Stage 2 runs on the merged probe
     outputs of the whole batch on the lead device (this process's first
-    cell), except in the event-lane form, where each data row's runs on
-    its first card. Event mode keeps the lane form across shards unless
-    KREPP_SHARD_DENSE is set (then the dense event probe per shard, whose
-    [2B, S, X] histograms sum like the other modes')."""
+    cell), except in event mode, where each data row's runs on its first
+    card over the row's event lanes."""
 
     def __init__(self, dindex: DeviceIndex, mesh: QueryMesh,
                  hdist_th: int = 4, concurrent: bool = True):
@@ -168,7 +165,6 @@ class ShardedQueryEngine(QueryEngine):
         self._rowmaps: Dict[torch.device, _RowMap] = {self.device: self._rows}
         if di.se_mask is None or qengine.FORCE_EVENT:
             _check_leaf_ranges(di)
-            self._lane_form = not os.environ.get("KREPP_SHARD_DENSE")
             blocks = self._build_shards(di, force_flavor="se")
             if self.mode != "hybrid":
                 raise RuntimeError(
@@ -179,7 +175,6 @@ class ShardedQueryEngine(QueryEngine):
             replicated = dict(leaf_off=di.leaf_csr_off.astype(np.int64),
                               leaf_slots=di.leaf_csr_slots.astype(np.int32))
         else:
-            self._lane_form = False
             blocks = self._build_shards(di)
             replicated = dict(mask=di.se_mask)
         placed = {}
@@ -356,14 +351,7 @@ class ShardedQueryEngine(QueryEngine):
         th, S, W = self.th, self.S, self.W
         mb = self.di.max_bucket
         _, B, P = sidx.shape
-        if self.mode == "event":
-            E, KH, CAP_L = self._event_caps(B, P, max(tier, 2) if exact
-                                            else tier)
-            hist, minall, ov = event_probe(
-                t["slots"], t["enc_se"], t["row_start"], t["leaf_off"],
-                t["leaf_slots"], sidx, hrow, mine, res2, th, self.C0, S, mb,
-                E, KH, CAP_L)
-        elif self.mode == "hybrid" and not exact:
+        if self.mode == "hybrid" and not exact:
             # no heavy table: the CSR tail, as the reference's shards
             hist, minall, ov = self._hybrid_core(
                 t["slots"], t["enc_se"], t["row_start"], t["mask"], sidx,
@@ -438,7 +426,7 @@ class ShardedQueryEngine(QueryEngine):
         its data row, joined and run through stage 2 per data row (no
         [B, S] array anywhere); lane keys then move to the batch's read
         space. Other modes: the dense path through `_probe_impl`."""
-        if not self._lane_form:
+        if self.mode != "event":
             return super()._probe_and_lanes(tables, codes, lengths, leaf_ok,
                                             lane_cap, exact, tier)
         B = codes.shape[0]
@@ -551,4 +539,4 @@ class ShardedQueryEngine(QueryEngine):
         codes, lengths = _pad_batch(codes, np.asarray(lengths), self.n_data)
         lr = super().fetch_prefetched(fetched, lengths, codes=codes,
                                       leaf_ok=leaf_ok, out_mode=out_mode)
-        return lr if len(lr.lengths) == B else _slice_results(lr, 0, B)
+        return lr if len(lr.lengths) == B else lr.select(0, B)

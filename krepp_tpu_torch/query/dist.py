@@ -22,7 +22,7 @@ from ..core import trace
 from ..core.codec import pad_codes_batch
 from ..index.index import DeviceIndex
 from ..io.fastx import QueryBatcher
-from .engine import QueryEngine
+from .engine import QueryEngine, _pad_batch
 
 IN_FLIGHT = 3
 
@@ -85,12 +85,12 @@ def run_dist(dindex: DeviceIndex, query_path: str, out: TextIO,
             if need_ratio:
                 lr.lanes.ratio = engine.compute_ratio_host(lr)
             if len(lr.lengths) != len(names_b):   # drop batch padding reads
-                lr = _slice_results(lr, 0, len(names_b))
+                lr = lr.select(0, len(names_b))
             if cfg.emit_slice:
                 rank, nranks = cfg.emit_slice
                 B = len(names_b)
                 lo, hi = rank * B // nranks, (rank + 1) * B // nranks
-                lr = _slice_results(lr, lo, hi)
+                lr = lr.select(lo, hi)
                 names_b = names_b[lo:hi]
             _report_batch(lr, names_b, leaf_names, cfg, out, wcount)
 
@@ -139,35 +139,6 @@ def note_batch(lengths: np.ndarray, k: int) -> None:
         trace.count("kmer_positions",
                     int(np.maximum(lengths.astype(np.int64) - k + 1,
                                    0).sum()))
-
-
-def _pad_batch(codes: Optional[np.ndarray], lengths: np.ndarray, mult: int):
-    """Pad the batch (with zero-length reads) to a multiple of an engine's
-    data-parallel width (codes may be None); callers slice results back to
-    the real count."""
-    padn = (-len(lengths)) % mult
-    if padn == 0:
-        return codes, lengths
-    if codes is not None:
-        codes = np.concatenate(
-            [codes, np.full((padn, codes.shape[1]), 4, codes.dtype)])
-    lengths = np.concatenate([lengths, np.zeros(padn, lengths.dtype)])
-    return codes, lengths
-
-
-def _slice_results(lr, lo: int, hi: int):
-    """Reads [lo, hi) of a LeafResults: every per-read (leading batch axis)
-    field sliced, and the lanes of those reads, counted from lo. It reads
-    the stored fields, so a dense view not yet built stays unbuilt."""
-    B = len(lr.lengths)
-    fields = {}
-    for name, v in vars(lr).items():
-        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == B:
-            v = v[lo:hi]
-        fields[name] = v
-    if lr.lanes is not None:
-        fields["lanes"] = lr.lanes.select(lo, hi)
-    return type(lr)(**fields)
 
 
 def _report_batch(lr, names: List[str], leaf_names: List[str],

@@ -42,7 +42,7 @@ from ..core.llh import F, brent_llh, make_llh, make_llh_np
 from ..index.index import DeviceIndex, DeviceSketch
 from .bucket_scan import (_scan_loop, make_expander, probe_strand,
                           probe_strand_full, scan_buckets_min)
-from .event_probe import event_probe, event_probe_lanes, heavy_id
+from .event_probe import event_probe_lanes, heavy_id
 from .kernels import (HD_SENTINEL, MAX_P, MAX_S, MAX_X, probe_hist_packed,
                       probe_hist_tiles)
 
@@ -262,11 +262,9 @@ class QueryEngine:
                else torch.from_numpy(di.row_ids.astype(np.int64)).to(dev))
         nrows_dense = di.nrows_u if di.row_ids is None else None
         self.C0 = min(DENSE_SLOTS, max(1, di.max_bucket))
-        self._lane_form = False
         if di.se_mask is None or FORCE_EVENT:
             self.mode = "event"
             self.hflavor = "se"
-            self._lane_form = True
             _check_leaf_ranges(di)
             slots, _ = build_hybrid_slots(
                 di.row_start, di.enc_v, di.se_v, None, nrows_dense,
@@ -569,33 +567,10 @@ class QueryEngine:
         return (hist[0], hist[1], minall[0], minall[1], onmers,
                 torch.zeros((), dtype=torch.bool, device=codes.device))
 
-    def _probe_event(self, tables, codes, lengths, tier: int):
-        """Dense event probe (event_probe.py): the 6-tuple of the other
-        modes, with a [2B, S, X] histogram; exact up to its caps."""
-        (slots_d, enc_se, row_start, row_ids, leaf_off, leaf_slots,
-         heavy_tab) = tables
-        with trace.span("hash"):
-            rix2, res2, valid, onmers = self._strand_hashes(codes, lengths)
-            urow, resident = self._rows(rix2, valid[None])   # [2, B, P]
-            sidx, hrow, resident = self._route_rows(row_ids, urow, resident)
-        B, P = codes.shape[0], urow.shape[2]
-        E, KH, CAP_L = self._event_caps(B, P, tier)
-        with trace.span("probe"):
-            hist, minall, ov = event_probe(
-                slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
-                resident, res2, self.th, self.C0, self.S, self.di.max_bucket,
-                E, KH, CAP_L, heavy_tab=heavy_tab)
-            hist = hist.reshape(2, B, self.S, self.th + 1)
-            minall = minall.reshape(2, B)
-        return (hist[0], hist[1], minall[0], minall[1], onmers, ov)
-
     def _probe_impl(self, tables, codes, lengths, exact: bool = False,
                     tier: int = 0):
-        """(hist_or, hist_rc, minall_or, minall_rc, onmers, overflow).
-        Event mode's "exact" is a capacity tier >= 2."""
-        if self.mode == "event":
-            return self._probe_event(tables, codes, lengths,
-                                     max(tier, 2) if exact else tier)
+        """(hist_or, hist_rc, minall_or, minall_rc, onmers, overflow) of the
+        hybrid and CSR modes (event mode runs `_event_lanes`)."""
         csr = tables if self.mode == "csr" else tables[1:5]
         if exact:
             return self._probe_csr_exact(csr, codes, lengths)
@@ -713,10 +688,9 @@ class QueryEngine:
         """Probe + lane extraction -> (L dict, onmers, probe_overflow).
 
         Event mode stays in lane form end to end (_event_lanes); the other
-        modes (and the sharded engine's dense event probe) probe dense
-        histograms and run stage 2 on K = min(B*S, lane_cap) lanes
-        extracted from them (lane_cap None: all B*S)."""
-        if self._lane_form:
+        modes probe dense histograms and run stage 2 on K = min(B*S,
+        lane_cap) lanes extracted from them (lane_cap None: all B*S)."""
+        if self.mode == "event":
             return self._event_lanes(tables, codes, lengths, leaf_ok,
                                      lane_cap, exact, tier)
         probe_out = self._probe_impl(tables, codes, lengths, exact, tier)
@@ -963,7 +937,7 @@ class QueryEngine:
         state (and the stage-3 per-(read, tree-node) state for place) under
         ~1 GB. Event-mode dist never materialises [B, S] beyond a present
         bitmap, so its batches are bounded by lane capacities instead."""
-        if self._lane_form and not place:
+        if self.mode == "event" and not place:
             return min(32768, max(256, (1 << 30) // (32 * max(self.S, 1))))
         per_read = (256 if place else 128) * max(self.S, 1)
         return max(256, (1 << 30) // per_read)
@@ -1202,6 +1176,20 @@ def _csr_bucket_slices(row_start, row_ids, urow, resident):
     return start, cnt
 
 
+def _pad_batch(codes: Optional[np.ndarray], lengths: np.ndarray, mult: int):
+    """Pad the batch (with zero-length reads) to a multiple of an engine's
+    data-parallel width (codes may be None); callers slice results back to
+    the real count (`LeafResults.select`)."""
+    padn = (-len(lengths)) % mult
+    if padn == 0:
+        return codes, lengths
+    if codes is not None:
+        codes = np.concatenate(
+            [codes, np.full((padn, codes.shape[1]), 4, codes.dtype)])
+    lengths = np.concatenate([lengths, np.zeros(padn, lengths.dtype)])
+    return codes, lengths
+
+
 @dataclass
 class DistLanes:
     """dist's host results: one entry per present (read, leaf slot) pair,
@@ -1280,6 +1268,20 @@ class LeafResults:
     rho: Optional[np.ndarray] = None     # f64 [B, S]
     ratio: Optional[np.ndarray] = None   # f64 [B, S] chisq vs closest
     lanes: Optional[DistLanes] = None
+
+    def select(self, lo: int, hi: int) -> "LeafResults":
+        """Reads [lo, hi): every per-read (leading batch axis) field
+        sliced, and the lanes of those reads, counted from lo. It reads the
+        stored fields, so a dense view not yet built stays unbuilt."""
+        B = len(self.lengths)
+        fields = {}
+        for name, v in vars(self).items():
+            if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == B:
+                v = v[lo:hi]
+            fields[name] = v
+        if self.lanes is not None:
+            fields["lanes"] = self.lanes.select(lo, hi)
+        return type(self)(**fields)
 
 
 def _dense_view(name: str) -> property:

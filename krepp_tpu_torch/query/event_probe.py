@@ -19,12 +19,9 @@ whose integer atomics give the same answer in any order.
 Host syncs: one, for the loop bound of the ultra-deep E-slot scan (the
 deepest bucket it must cover), when buckets exceed the heavy tail's width.
 
-`event_probe` is the reference's dense form: the same light pass, a heavy
-tail that rescans every heavy bucket from its first entry into E slots,
-the same expansion and dedupe, and the lanes scattered into a dense
-[2B, S, X] histogram. The sharded engine runs it per shard when
-KREPP_SHARD_DENSE is set (its int32 histograms sum exactly over shards);
-the single-device engine's `_probe_impl` runs it in event mode.
+The reference's dense form (`event_probe`, a [2B, S, X] histogram) is not
+ported: the single-device and the sharded engines both run event mode in
+lane form.
 """
 
 from __future__ import annotations
@@ -311,115 +308,3 @@ def _dedupe_lanes(nb, leaf, k3, tv, N: int, S: int, X: int):
     nb_lane = torch.where(nb_lane >= 0, nb_lane, N)
     return k1s, hd_s, valid_s, nb_lane, leaf_lane, hist_lanes
 
-
-def event_probe(slots_d, enc_se, row_start, leaf_off, leaf_slots, sidx, hrow,
-                resident, res2, th: int, C0: int, S: int, max_bucket: int,
-                E: int, KH: int, CAP_L: int, heavy_tab=None):
-    """Dense event probe over pre-routed probes [2, B, P] (port of the
-    reference's `event_probe`).
-
-    Arguments as `event_probe_lanes`; a heavy table only changes how the
-    count word is read (cnt | (hid + 1) << 8): heavy buckets are rescanned
-    from row_start, every match into one of E slots per probe (more raise
-    the overflow flag). Returns (hist [2B, S, th+1] int32, minall [2B]
-    int32, overflow bool tensor). minall counts every match, also one
-    whose color expands to no leaf (the engine refuses such indexes)."""
-    X = th + 1
-    dev = res2.device
-    _, B, P = sidx.shape
-    N = 2 * B
-    Np = N * P
-    nk = max(enc_se.shape[0], 1)
-
-    # ---------------------------------------------------------- light pass
-    d = slots_d[sidx.reshape(Np)]                        # [Np, 1+2C0]
-    word0 = d[:, 0]
-    res_f = resident.reshape(Np)
-    res_c = res2.reshape(Np)
-    cnt = torch.where(res_f, word0 & 255 if heavy_tab is not None else word0,
-                      0)
-    heavy = cnt > C0
-    light = res_f & ~heavy
-    hd_l = hdist_lr32(d[:, 1: 1 + C0], res_c[:, None])   # [Np, C0]
-    jc = torch.arange(C0, dtype=torch.int32, device=dev)
-    lm = light[:, None] & (jc < cnt[:, None]) & (hd_l <= th)
-    minall = torch.where(lm, hd_l, HD_SENTINEL).amin(dim=1).reshape(
-        N, P).amin(dim=1)
-    lane = torch.arange(Np, dtype=torch.int64, device=dev)
-    ev_lane = [lane.repeat_interleave(C0)]
-    ev_se = [d[:, 1 + C0: 1 + 2 * C0].reshape(Np * C0)]
-    ev_hd = [torch.where(lm, hd_l, 0).reshape(Np * C0)]
-    ev_ok = [lm.reshape(Np * C0)]
-
-    # ---------------------------------------------------------- heavy tail
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    if max_bucket > C0:
-        hidx, nheavy = compact_mask_indices(heavy, KH)
-        overflow = nheavy > KH
-        KHa = hidx.shape[0]
-        hsafe = torch.clamp(hidx, max=Np - 1).long()
-        live = (hidx < Np) & heavy[hsafe]
-        hres = res_c[hsafe]
-        start = row_start[hrow.reshape(Np)[hsafe]]
-        hcnt = torch.where(live, row_start[hrow.reshape(Np)[hsafe] + 1]
-                           - start, 0).to(torch.int32)
-        hmax = min(host_int(hcnt.max()), max_bucket) if KHa else 0
-        je = torch.arange(E, dtype=torch.int32, device=dev)
-        bse = torch.zeros((KHa, E), dtype=torch.int32, device=dev)
-        bhd = torch.zeros((KHa, E), dtype=torch.int32, device=dev)
-        nm = torch.zeros((KHa,), dtype=torch.int32, device=dev)
-        hgmin = torch.full((KHa,), HD_SENTINEL, dtype=torch.int32,
-                           device=dev)
-        for j in range(hmax):
-            pair = enc_se[torch.clamp(start + j, max=nk - 1)]
-            hd = hdist_lr32(pair[:, 0], hres)
-            m = (j < hcnt) & (hd <= th)
-            hgmin = torch.where(m, torch.minimum(hgmin, hd), hgmin)
-            put = m[:, None] & (nm[:, None] == je)
-            bse = torch.where(put, pair[:, 1][:, None], bse)
-            bhd = torch.where(put, hd[:, None], bhd)
-            nm = nm + m.to(torch.int32)
-        overflow = overflow | (nm > E).any()
-        ev_lane.append(hsafe.repeat_interleave(E))
-        ev_se.append(bse.reshape(KHa * E))
-        ev_hd.append(bhd.reshape(KHa * E))
-        ev_ok.append((live[:, None]
-                      & (je < torch.clamp(nm, max=E)[:, None])).reshape(-1))
-        minall = minall.scatter_reduce(
-            0, hsafe // P, torch.where(live, hgmin, HD_SENTINEL), "amin")
-    ev_lane = torch.cat(ev_lane)
-    ev_ok = torch.cat(ev_ok)
-    ev_hd = torch.cat(ev_hd)
-    se_ok = torch.where(ev_ok, torch.cat(ev_se), 0).long()
-
-    # --------------------------------------------- color -> leaf expansion
-    # event e owns output slots [cum[e] - cards[e], cum[e]); the owner of
-    # slot t is the last event starting at or before t
-    cards = torch.where(ev_ok, leaf_off[se_ok + 1] - leaf_off[se_ok], 0)
-    cum = torch.cumsum(cards, 0)
-    T = cum[-1]
-    overflow = overflow | (T > CAP_L)
-    starts = cum - cards
-    marks = torch.zeros((CAP_L + 1,), dtype=torch.int32, device=dev)
-    marks.index_add_(0, torch.clamp(starts, max=CAP_L),
-                     torch.ones_like(starts, dtype=torch.int32))
-    evc = torch.clamp(torch.cumsum(marks[:CAP_L], 0) - 1, min=0).long()
-    t = torch.arange(CAP_L, dtype=torch.int64, device=dev)
-    tv = t < torch.clamp(T, max=CAP_L)
-    lidx = torch.clamp(leaf_off[se_ok[evc]] + (t - starts[evc]), 0,
-                       max(leaf_slots.shape[0] - 1, 0))
-    leaf = torch.where(tv, leaf_slots[lidx], 0)
-    lane_t = ev_lane[evc]
-    nb = lane_t // P
-    k3 = (lane_t - nb * P) * 8 + ev_hd[evc]
-
-    # ------------------------------------------------- sort + dedupe + hist
-    _, _, _, nb_lane, leaf_lane, hist_lanes = _dedupe_lanes(
-        nb, leaf, k3, tv, N, S, X)
-    # lanes are unique (strand-read, leaf) pairs; empty lanes (nb_lane N)
-    # go to one padding row that is sliced off
-    row = torch.where(nb_lane < N, nb_lane.long() * S + leaf_lane.long(),
-                      N * S)
-    hist = torch.zeros((N * S + 1, X), dtype=torch.int32, device=dev)
-    hist.index_add_(0, row, hist_lanes)
-    return hist[: N * S].reshape(N, S, X), minall, overflow

@@ -40,8 +40,8 @@ from ..core.llh import F, brent_llh, make_llh_np
 from ..index.index import DeviceIndex, PlacementView
 from ..io import native_report
 from ..io.fastx import QueryBatcher
-from .dist import IN_FLIGHT, _bucket_len, _pad_batch, note_batch
-from .engine import D_MAX, LeafResults, QueryEngine
+from .dist import IN_FLIGHT, _bucket_len, note_batch
+from .engine import D_MAX, LeafResults, QueryEngine, _pad_batch
 
 # Stage-3 formulation threshold: dense damping-weight einsums while the
 # [Q+1, S] weight grid stays under this many cells; larger worlds take the

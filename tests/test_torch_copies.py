@@ -1,9 +1,11 @@
 """The port's own copies of krepp_tpu's host modules (params, stdrand,
-reports, tree, colors, hll, sdust, native_sort, native_colorize, io.native, and
+reports, tree, colors, hll, sdust, native_sort, native_colorize, and
 the small helpers of index.artifact; its save / load functions are held
-equal on whole directories in test_torch_cli_index.py): the
-same numpy-seeded inputs through the original and the copy, exact equality
-(these are integer and string functions; fmt5 output compared as strings).
+equal on whole directories in test_torch_cli_index.py), and the port's
+genome reader (io.fastx over io.native_batch) against krepp_tpu's
+io.native: the same numpy-seeded inputs through the original and the
+port, exact equality (these are integer and string functions; fmt5 output
+compared as strings).
 """
 
 import dataclasses
@@ -21,7 +23,7 @@ from krepp_tpu.core import native_sort as jsort
 from krepp_tpu.core import sdust as jsdust
 from krepp_tpu.core import stdrand as jstdrand
 from krepp_tpu.index import colors as jcolors
-from krepp_tpu.io import native as jnative
+from krepp_tpu.io.native import read_fastx_native as jread_fastx_native
 from krepp_tpu.testing import make_world
 from krepp_tpu.tree import flat as jflat
 from krepp_tpu.tree import newick as jnewick
@@ -29,7 +31,7 @@ from krepp_tpu_torch import params, reports
 from krepp_tpu_torch.core import (hll, native_colorize, native_sort, sdust,
                                   stdrand)
 from krepp_tpu_torch.index import colors
-from krepp_tpu_torch.io import native
+from krepp_tpu_torch.io import fastx, native_batch
 from krepp_tpu_torch.tree import flat, newick
 from refcsrc import private_reference_csrc  # noqa: F401
 
@@ -521,7 +523,7 @@ def test_native_colorize_matches(ng, W):
     assert tmask.shape[1] == W and (tse[sizes == 1] >= 0).all()
 
 
-# --------------------------------------------------------------- io.native
+# ------------------------------------------------------- the genome reader
 def _fasta(rng, n):
     recs = []
     for i in range(n):
@@ -540,29 +542,56 @@ def _fastq(rng, n):
     return "".join(recs)
 
 
-@pytest.mark.parametrize("kind", ["fasta", "fastq"])
+def _contigs(rng, n):
+    """n short FASTA records with one 3 Mbp contig (80-column lines, '\r'
+    line ends) in their middle."""
+    alpha = np.frombuffer(b"ACGTNacgt", np.uint8)
+    long = alpha[rng.integers(0, len(alpha), 3_000_000)].tobytes().decode()
+    body = "\r\n".join(long[j: j + 80] for j in range(0, len(long), 80))
+    short = _fasta(rng, n - 1)
+    mid = short.index(">seq28 ")
+    return short[:mid] + f">chr1 3 Mbp\r\n{body}\r\n" + short[mid:]
+
+
+@pytest.mark.parametrize("kind", ["fasta", "fastq", "contigs"])
 @pytest.mark.parametrize("gz", [False, True])
-def test_native_fastx_reader_matches(tmp_path, kind, gz):
+def test_native_fastx_reader_matches(tmp_path, monkeypatch, kind, gz):
+    """read_genome_codes yields krepp_tpu's native records' codes, also
+    where a call's bases split the records into many calls."""
     rng = np.random.default_rng(len(kind) + gz)
-    text = (_fasta if kind == "fasta" else _fastq)(rng, 57)
+    make = {"fasta": _fasta, "fastq": _fastq, "contigs": _contigs}[kind]
+    text = make(rng, 57)
     path = tmp_path / (f"x.{kind}" + (".gz" if gz else ""))
     if gz:
-        with gzip.open(path, "wt") as f:
+        with gzip.open(path, "wt", compresslevel=1) as f:
             f.write(text)
     else:
         path.write_text(text)
-    want = list(jnative.read_fastx_native(str(path)))
-    got = list(native.read_fastx_native(str(path)))
+    want = [c for _, c in jread_fastx_native(str(path))]
+    got = list(fastx.read_genome_codes(str(path)))
     assert len(want) == len(got) == 57
-    for (jn, jc), (tn, tc) in zip(want, got):
-        assert jn == tn and jc.dtype == tc.dtype and np.array_equal(jc, tc)
-    # small chunks: records split across reader calls
-    chunks = list(native.NativeFastxReader(str(path), max_records=5,
-                                           max_bases=1 << 12))
-    assert sum(len(names) for names, _, _ in chunks) == 57
+    assert max(map(len, got)) == (3_000_000 if kind == "contigs" else
+                                  max(map(len, want)))
+    for jc, tc in zip(want, got):
+        assert jc.dtype == tc.dtype and np.array_equal(jc, tc)
+    # small calls: records split across reader calls
+    calls = []
+
+    def batches(path, bp_limit, counter):
+        assert (bp_limit, counter) == (1 << 10, None)
+        for names, reads in native_batch._batches(path, bp_limit, counter):
+            calls.append(len(names))
+            yield names, reads
+
+    monkeypatch.setattr(fastx, "GENOME_BP_A_CALL", 1 << 10)
+    monkeypatch.setattr(fastx, "_batches", batches)
+    small = list(fastx.read_genome_codes(str(path)))
+    assert len(calls) > 2 and sum(calls) == 57
+    assert len(small) == 57 and all(
+        np.array_equal(a, b) for a, b in zip(small, got))
     with pytest.raises(FileNotFoundError):
-        native.NativeFastxReader(str(tmp_path / "missing.fa"))
+        list(fastx.read_genome_codes(str(tmp_path / "missing.fa")))
     bad = tmp_path / "bad.txt"
     bad.write_text("not a sequence file\n")
     with pytest.raises(ValueError):
-        list(native.read_fastx_native(str(bad)))
+        list(fastx.read_genome_codes(str(bad)))

@@ -1,6 +1,6 @@
 """dist's host results as lanes (query/engine.DistLanes): the lane decode
 of the step's packed present bits, the closest distance read from the
-lanes, the [B, S] views built from them on demand, `_slice_results` and
+lanes, the [B, S] views built from them on demand, `LeafResults.select` and
 `dist._report_rows` against the dense forms they replace, byte for byte."""
 
 import io
@@ -211,7 +211,7 @@ def test_slice_results_when_lanes_equal_reads(lo, hi):
     B, S = 7, 5
     lr = _leaf_results(np.random.default_rng(lo * 10 + hi), B, S, B)
     assert len(lr.lanes.b) == B
-    got = dist._slice_results(lr, lo, hi)
+    got = lr.select(lo, hi)
     assert got.__dict__["present"] is None          # still not built
     assert len(got.lengths) == hi - lo
     for f in ("closest_slot", "closest_d", "hist_closest", "uc_closest",
@@ -291,7 +291,7 @@ def test_report_rows_byte_identical(world, engines, mode, report, emit):
     if emit is not None:
         rank, nranks = emit
         lo, hi = rank * len(names) // nranks, (rank + 1) * len(names) // nranks
-        lr, names = dist._slice_results(lr, lo, hi), names[lo:hi]
+        lr, names = lr.select(lo, hi), names[lo:hi]
     leaf_names = [f"leaf{i}" for i in range(eng.S)]
     got, want = io.StringIO(), io.StringIO()
     wc_got, wc_want = np.zeros(eng.S), np.zeros(eng.S)

@@ -49,7 +49,7 @@ print("loaded")
 @pytest.mark.parametrize("module,stem", [
     ("krepp_tpu_torch.core.native_sort", "sortkv"),
     ("krepp_tpu_torch.core.native_colorize", "colorize"),
-    ("krepp_tpu_torch.io.native", "fastx"),
+    ("krepp_tpu_torch.io.native_batch", "fastx_batch"),
     ("krepp_tpu_torch.io.native_report", "report"),
 ])
 def test_concurrent_first_builds_of_the_other_loaders(tmp_path, module, stem):

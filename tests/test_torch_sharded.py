@@ -1,16 +1,15 @@
 """Port ShardedQueryEngine vs the port's single-device engine and
 krepp_tpu's ShardedQueryEngine (on the conftest's 8 virtual CPU devices):
-dense (h = 11) and sparse (h = 13) row spaces at meshes 1x2, 2x2, 1x8, 2x4
-and 8x1, in hybrid, CSR, event-lane and dense-event modes, the engine
-that runs its cells at once (the default) and the one that runs them in
-turn (concurrent=False); dist and place reports of both byte for byte the
-one-device port's and krepp_tpu's; a barrier every cell must reach at once
-(which the in-turn engine breaks), a failing cell named in its exception,
-a tier re-run forced through the heavy cap, a natural many-genome (no
-bitmask) world, the dense event probe against the reference's, the
-per-tier resident cap the port keeps where the reference's sharded lanes
-do not, and `--mesh` through the CLI on the host. Integers equal, `d`
-within 5e-9."""
+dense (h = 11) and sparse (h = 13) row spaces and buckets up to 9 deep at
+meshes 1x2, 2x2, 1x8, 2x4 and 8x1, in hybrid, CSR and event-lane modes,
+the engine that runs its cells at once (the default) and the one that
+runs them in turn (concurrent=False); dist and place reports of both byte
+for byte the one-device port's and krepp_tpu's; a barrier every cell must
+reach at once (which the in-turn engine breaks), a failing cell named in
+its exception, a tier re-run forced through the heavy cap, a natural
+many-genome (no bitmask) world, the per-tier resident cap the port keeps
+where the reference's sharded lanes do not, and `--mesh` through the CLI
+on the host. Integers equal, `d` within 5e-9."""
 
 import io
 import threading
@@ -24,7 +23,6 @@ import jax
 from krepp_tpu import testing as jtesting
 from krepp_tpu.index.index import DeviceIndex as JDeviceIndex
 from krepp_tpu.parallel import mesh as jmesh
-from krepp_tpu.query import engine as jengine
 from krepp_tpu.query.dist import run_dist as jrun_dist
 from krepp_tpu.query.place import PlaceConfig as JPlaceConfig
 from krepp_tpu.query.place import run_place as jrun_place
@@ -38,14 +36,13 @@ from krepp_tpu_torch.query import engine
 from krepp_tpu_torch.query.dist import run_dist
 from krepp_tpu_torch.query.place import PlaceConfig, run_place
 
-from test_torch_engine import _assert_tuple_equal
 from test_torch_event import _assert_leaf_equal
 from refcsrc import private_reference_csrc  # noqa: F401
 
 torch.set_num_threads(1)
 
 MESHES = [(1, 2), (2, 2), (1, 8), (2, 4), (8, 1)]
-MODES = ["hybrid", "csr", "event", "dense"]
+MODES = ["hybrid", "csr", "event"]
 WORLDS = {
     # tests/test_sharded.py's two row spaces
     "h11-dense": dict(seed=31, nleaves=6, glen=1500, k=27, h=11, m=4),
@@ -84,16 +81,12 @@ def _engines(name, mesh, mode, monkeypatch):
     jdi, codes, lengths = _world(name)
     if mode == "csr":
         monkeypatch.setattr(engine, "DIRECT_MEM_CAP", 0)
-    if mode in ("event", "dense"):
+    if mode == "event":
         monkeypatch.setattr(engine, "FORCE_EVENT", True)
-    if mode == "dense":
-        monkeypatch.setenv("KREPP_SHARD_DENSE", "1")
     di = DeviceIndex.from_reference(jdi)
     single = engine.QueryEngine(di, 4, device="cpu")
     sharded = ShardedQueryEngine(di, make_query_mesh(*mesh, device="cpu"), 4)
-    want = {"hybrid": "hybrid", "csr": "csr"}.get(mode, "event")
-    assert single.mode == sharded.mode == want
-    assert sharded._lane_form == (mode == "event")
+    assert single.mode == sharded.mode == mode
     return single, sharded, codes, lengths
 
 
@@ -105,12 +98,12 @@ def _in_turn(sharded):
 
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("name", ["h11-dense", "h13-sparse"])
+@pytest.mark.parametrize("name", ["h11-dense", "h13-sparse", "deep"])
 def test_sharded_equals_single_device(name, mode, mesh, monkeypatch):
     single, sharded, codes, lengths = _engines(name, mesh, mode, monkeypatch)
     assert sharded.concurrent and (
         sharded._rowmap(torch.device("cpu")) is not None
-        and sharded._dense_space == (name == "h11-dense"))
+        and sharded._dense_space == (name != "h13-sparse"))
     in_turn = _in_turn(sharded)
     want = _leaf_stage(single, codes, lengths)
     for eng in (sharded, in_turn):
@@ -279,7 +272,7 @@ def test_deep_buckets_and_a_forced_tier_rerun(monkeypatch):
     di = DeviceIndex.from_reference(jdi)
     want = _leaf_stage(engine.QueryEngine(di, 4, device="cpu"), codes,
                        lengths)
-    for mode in ("hybrid", "event", "dense"):
+    for mode in ("hybrid", "event"):
         single, sharded, _, _ = _engines("deep", (2, 4), mode, monkeypatch)
         _assert_leaf_equal(want, _leaf_stage(sharded, codes, lengths),
                            FIELDS)
@@ -291,10 +284,10 @@ def test_deep_buckets_and_a_forced_tier_rerun(monkeypatch):
     assert sharded.escalations >= 1
 
 
-def test_many_genome_world_in_both_event_forms(monkeypatch):
+def test_many_genome_world_in_event_lanes():
     """A world without bitmasks (300 genomes > 8 mask words), as
-    tests/test_sharded.py's: the lane form and the dense form across
-    shards equal the single-device event lanes."""
+    tests/test_sharded.py's: the event lanes across shards equal the
+    single-device event lanes."""
     built, genomes, _ = jtesting.build_world_index(
         seed=47, nleaves=300, glen=400, rate=0.08, k=29, h=13, m=4)
     di = DeviceIndex.from_reference(JDeviceIndex.from_built(built))
@@ -305,39 +298,9 @@ def test_many_genome_world_in_both_event_forms(monkeypatch):
     want = _leaf_stage(engine.QueryEngine(di, 4, device="cpu"), codes,
                        lengths)
     assert want.present.sum() > 10
-    for dense in (False, True):
-        if dense:
-            monkeypatch.setenv("KREPP_SHARD_DENSE", "1")
-        eng = ShardedQueryEngine(di, make_query_mesh(2, 4, device="cpu"), 4)
-        assert eng.mode == "event" and eng._lane_form != dense
-        _assert_leaf_equal(want, _leaf_stage(eng, codes, lengths), FIELDS)
-
-
-@pytest.mark.parametrize("name", ["deep", "h13-sparse"])
-def test_dense_event_probe_matches_the_reference(name, monkeypatch):
-    """The port's dense event probe (`_probe_impl` in event mode, through
-    event_probe.event_probe with the heavy table's count words) against
-    krepp_tpu's `_probe_event` on the same index and reads; then a cap of
-    E = 1 match a probe overflows in both."""
-    jdi, codes, lengths = _world(name)
-    monkeypatch.setenv("KREPP_EVENT_PROBE", "1")
-    je = jengine.QueryEngine(jdi, hdist_th=4)
-    monkeypatch.setattr(engine, "FORCE_EVENT", True)
-    te = engine.QueryEngine(DeviceIndex.from_reference(jdi), 4, device="cpu")
-    c, ln = jax.numpy.asarray(codes), jax.numpy.asarray(lengths)
-    tc, tl = torch.from_numpy(codes.astype(np.int32)), torch.from_numpy(
-        lengths)
-    for one_slot in (False, True):
-        if one_slot:
-            caps = te._event_caps
-            je._event_caps = te._event_caps = \
-                lambda B, P, tier: (1,) + caps(B, P, tier)[1:]
-        want = jax.device_get(jax.jit(
-            lambda t, a, b: je._probe_event(t, a, b, 0))(je._tables, c, ln))
-        got = tuple(x.numpy() for x in te._probe_impl(te._tables, tc, tl))
-        _assert_tuple_equal(want, got)
-        assert got[0].sum() > 0
-        assert bool(got[-1]) == one_slot or name != "deep"
+    eng = ShardedQueryEngine(di, make_query_mesh(2, 4, device="cpu"), 4)
+    assert eng.mode == "event"
+    _assert_leaf_equal(want, _leaf_stage(eng, codes, lengths), FIELDS)
 
 
 def test_shard_resident_cap_grows_by_tier(monkeypatch):

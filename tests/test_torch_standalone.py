@@ -16,7 +16,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "krepp_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "krepp_tpu")
-C_SOURCES = ("extract.c", "report.c", "sortkv.c", "colorize.c", "fastx.c")
+C_SOURCES = ("extract.c", "report.c", "sortkv.c", "colorize.c")
 
 
 def _port_sources():
