@@ -13,7 +13,7 @@ opens a half-written library. nvcc's output (ptxas register and spill
 report included) is kept next to it as `<library>.log`. `build` starts one
 nvcc per missing library, all at once. `cc_library` builds the port's C
 host libraries (winnower, jplace emitter, radix sort, colorizer,
-FASTA/FASTQ reader; sources in this directory) into the same directory
+FASTA/FASTQ reader, dist's row emitter; sources in this directory) into the same directory
 the same way.
 """
 

@@ -2,9 +2,10 @@
 
 Port of krepp_tpu/query/dist.py: the same batching, report semantics
 (IBatch::report_distances, ref: src/query.cpp:158-196) and bulk row
-emission, over the torch engine. Up to three batches are in flight: a
-batch's device-to-host copies are issued when it is dispatched, and it is
-reported once two more have been dispatched behind it.
+emission (one native call a batch, io/native_rows), over the torch
+engine. Up to three batches are in flight: a batch's device-to-host
+copies are issued when it is dispatched, and it is reported once two more
+have been dispatched behind it.
 """
 
 from __future__ import annotations
@@ -16,12 +17,13 @@ from typing import List, Optional, TextIO
 
 import numpy as np
 
-from ..reports import dist_header, fmt5, fmt5_array
+from ..reports import dist_header, fmt5
 
 from ..core import trace
 from ..core.codec import pad_codes_batch
 from ..index.index import DeviceIndex
 from ..io.fastx import QueryBatcher
+from ..io.native_rows import dist_rows
 from .engine import QueryEngine, _pad_batch
 
 IN_FLIGHT = 3
@@ -143,7 +145,7 @@ def note_batch(lengths: np.ndarray, k: int) -> None:
 
 def _report_batch(lr, names: List[str], leaf_names: List[str],
                   cfg: DistConfig, out: TextIO, wcount: np.ndarray):
-    """Bulk row emission: one numpy pass over the batch's lanes + one
+    """Bulk row emission: one native call over the batch's kept rows + one
     write per batch, rows in (read-major, slot-minor) order (ref:
     src/query.cpp:158-196)."""
     with trace.span("report"):
@@ -160,7 +162,6 @@ def _report_rows(lr, names: List[str], leaf_names: List[str],
     lb, ls, ld = lanes.b, lanes.s, lanes.d
     dist_max = cfg.dist_max
     no_dmax = math.isnan(dist_max)
-    names_a = np.asarray(names, dtype=object)
     if cfg.summarize:
         # (ref: src/query.cpp:160-171): chisq filter always applies
         sel = lanes.ratio < cfg.chisq_value
@@ -172,7 +173,6 @@ def _report_rows(lr, names: List[str], leaf_names: List[str],
         np.divide(1.0, cnt, out=w, where=cnt > 0)
         np.add.at(wcount, ss, w[bs])
         return 0
-    leaf_a = np.asarray(leaf_names, dtype=object)
     na = np.bincount(lb, minlength=B) == 0
     if not no_dmax:
         na |= lr.closest_d > dist_max
@@ -182,18 +182,10 @@ def _report_rows(lr, names: List[str], leaf_names: List[str],
             sel &= lanes.ratio < cfg.chisq_value
         if not no_dmax:
             sel &= ld < dist_max
-        bs = lb[sel]
-        rows = (names_a[bs] + "\t" + leaf_a[ls[sel]] + "\t"
-                + fmt5_array(ld[sel]) + "\n")
+        bs, ss, ds = lb[sel], ls[sel], ld[sel]
     else:
         bs = np.flatnonzero(~na)
-        ss = lr.closest_slot[bs]
-        rows = (names_a[bs] + "\t" + leaf_a[ss] + "\t"
-                + fmt5_array(lr.closest_d[bs]) + "\n")
-    na_b = np.flatnonzero(na)
-    if len(na_b):
-        na_rows = names_a[na_b] + "\tNA\tNaN\n"
-        order = np.argsort(np.concatenate([bs, na_b]), kind="stable")
-        rows = np.concatenate([rows, na_rows])[order]
-    out.write("".join(rows.tolist()))
-    return len(rows)
+        ss, ds = lr.closest_slot[bs], lr.closest_d[bs]
+    text, rows = dist_rows(names, leaf_names, na, bs, ss, ds)
+    out.write(text)
+    return rows

@@ -51,6 +51,7 @@ print("loaded")
     ("krepp_tpu_torch.core.native_colorize", "colorize"),
     ("krepp_tpu_torch.io.native_batch", "fastx_batch"),
     ("krepp_tpu_torch.io.native_report", "report"),
+    ("krepp_tpu_torch.io.native_rows", "dist_rows"),
 ])
 def test_concurrent_first_builds_of_the_other_loaders(tmp_path, module, stem):
     """The loaders that share csrc/build.cc_library: six processes build

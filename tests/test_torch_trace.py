@@ -307,6 +307,22 @@ def test_dist_builds_no_dense_view(world, traced, opts):
 
 
 @pytest.mark.parametrize("opts", sorted(DIST_OPTS))
+def test_one_row_emitter_call_a_batch(world, traced, opts):
+    """dist writes a batch's rows with one native call
+    (`dist_emit_calls`); summarize writes no per-read rows and makes
+    none."""
+    di, qpath, _ = world
+    _, text, stats = _dist(di, qpath, **DIST_OPTS[opts])
+    c = trace.snapshot()["counts"]
+    assert stats["batches"] == c["batches"] == 3
+    if "summarize" in DIST_OPTS[opts]:
+        assert "dist_emit_calls" not in c
+    else:
+        assert c["dist_emit_calls"] == c["batches"]
+        assert c["rows"] == len(_data_lines(text)) > 42
+
+
+@pytest.mark.parametrize("opts", sorted(DIST_OPTS))
 def test_dist_rerun_writes_the_same_rows(world, traced, opts):
     """A batch re-run in full (a one-lane stage-2 cap) gives its lanes
     from the dense outputs: the same report."""
